@@ -54,13 +54,13 @@ def from_eam(eam) -> EAMPotential:
                         embed=from_poly(eam.embed))
 
 
-def from_scene(scene, device="cpu") -> Scene:
+def from_scene(scene, device="cuda") -> Scene:
     kw = {f.name: _t(getattr(scene, f.name), device)
           for f in dataclasses.fields(Scene) if f.name != "grid"}
     return Scene(grid=from_grid(scene.grid), **kw)
 
 
-def from_cl(cl, device="cpu") -> CLState:
+def from_cl(cl, device="cuda") -> CLState:
     if getattr(cl, "xbounds", None) is not None:
         raise NotImplementedError("LOADBALANCE xbounds are not ported")
     return CLState(**{f.name: _t(getattr(cl, f.name), device)
@@ -72,7 +72,7 @@ def from_ttm_params(tp) -> TTMParams:
                         for f in dataclasses.fields(TTMParams)})
 
 
-def from_ttm_grid(tg, device="cpu") -> TTMGrid:
+def from_ttm_grid(tg, device="cuda") -> TTMGrid:
     kw = {}
     for f in dataclasses.fields(TTMGrid):
         v = getattr(tg, f.name)

@@ -22,8 +22,8 @@ import time
 import numpy as np
 import torch
 
-from imd_tpu.config import LaserConfig, TTMConfig
-from imd_tpu.utils.generate import fcc
+from imd_tpu_torch.config import LaserConfig, TTMConfig
+from imd_tpu_torch.utils.generate import fcc
 from imd_tpu_torch import integrate
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.models.eos import FEGEos

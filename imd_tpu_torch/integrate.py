@@ -1,5 +1,5 @@
-"""Integrator knobs and Maxwell initial momenta (port of
-imd_tpu/integrate.py:35, 718).
+"""Maxwell initial momenta and the degree-of-freedom count of the .eng
+temperature (port of imd_tpu/integrate.py:718, 797).
 
 The fused hot loop does its own leapfrog (ops/fused_step.py); the
 ensembles of the general engine are not part of this slice.
@@ -7,19 +7,9 @@ ensembles of the general engine are not part of this slice.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from imd_tpu_torch.scene import Scene
-
-
-@dataclasses.dataclass(frozen=True)
-class IntegratorParams:
-    """Per-run integrator knobs of the param-file driver (ROADMAP A6); the
-    fused loop takes its timestep as a plain argument."""
-    timestep: float
-    temperature: float = 0.0
 
 
 def maxwell(scene: Scene, temperature: float,
@@ -28,9 +18,9 @@ def maxwell(scene: Scene, temperature: float,
 
     Gaussian momenta with variance m*T per component drawn from
     ``generator``, total momentum removed, then rescaled to the exact
-    temperature over the active degrees of freedom.  The numbers differ
-    from jax.random's for the same seed; tests inject NumPy momenta
-    through make_scene(mom=...) instead."""
+    temperature over the active degrees of freedom.  For the same seed
+    the numbers differ from imd_tpu's (jax.random); tests inject NumPy
+    momenta through make_scene(mom=...) instead."""
     dtype = scene.pos.dtype
     mask = scene.mask.to(dtype)
     g = torch.randn(scene.mom.shape, generator=generator, dtype=dtype,
@@ -50,3 +40,9 @@ def maxwell(scene: Scene, temperature: float,
     scale = torch.sqrt(temperature / torch.clamp(t_cur, min=1e-30))
     p = p * (scale if temperature > 0 else 0.0)
     return scene.replace(mom=p)
+
+
+def count_active_dof(scene: Scene) -> float:
+    """nactive: 3 per live atom (imd_misc.c); the restricted-motion
+    variant belongs to the general engine."""
+    return 3.0 * float(scene.mask.sum())

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Route: ``nvcc`` compiles every ``csrc/*.cu`` file into one shared library
-with a plain C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``.
+Route: ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a`` (Hopper),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, loaded with ``ctypes``.
 Each C entry takes device pointers and the stream as ``c_void_p`` and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
 
@@ -32,13 +33,17 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("eam_win.cu", "rebin_compact.cu")
+# -fmad=false: no multiply-add contraction, so the kernels round like
+# torch's eager mul + add (see eam_win.cu, "Rounding")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 NPOLY = 16            # padded Horner length baked per polynomial (deg <= 15)
-MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (K1/K2), candidates (K3)
+MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (K1/K2/K4/K5),
+                      # candidates (K3)
 
-LAUNCHES = {"eam_rho": 0, "eam_force": 0, "compact": 0}
+LAUNCHES = {"eam_rho": 0, "eam_force": 0, "compact": 0, "eam_rho_e": 0,
+            "eam_force_s": 0}
 
 
 def reset_launches() -> None:
@@ -56,10 +61,10 @@ class Poly(ctypes.Structure):
 class EamParams(ctypes.Structure):
     """Mirrors ``struct EamParams`` in eam_win.cu."""
     _fields_ = [("rho_v", Poly), ("pair_g", Poly), ("rho_g", Poly),
-                ("rcut2", ctypes.c_float), ("h", ctypes.c_float * 9),
-                ("pbc", ctypes.c_int * 3), ("gx", ctypes.c_int),
-                ("gy", ctypes.c_int), ("gz", ctypes.c_int),
-                ("cap", ctypes.c_int)]
+                ("pair_v", Poly), ("rcut2", ctypes.c_float),
+                ("h", ctypes.c_float * 9), ("pbc", ctypes.c_int * 3),
+                ("gx", ctypes.c_int), ("gy", ctypes.c_int),
+                ("gz", ctypes.c_int), ("cap", ctypes.c_int)]
 
 
 @dataclasses.dataclass
@@ -88,22 +93,41 @@ def _digest() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile csrc/*.cu into _build/ unless this exact build exists."""
+    """Compile csrc/*.cu into _build/ unless this exact build exists: one
+    nvcc per source in parallel, then one link."""
     so = BUILD_DIR / f"libimd_tpu_torch_{_digest()}.so"
     if so.exists():
         return BuildInfo(so, 0.0, "", True)
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(so.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(name).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / name)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(obj)
+    log = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = so.with_name(f"{tag}.so.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    seconds = time.perf_counter() - t0
     os.replace(tmp, so)
-    return BuildInfo(so, seconds, res.stdout + res.stderr, False)
+    for o in objs:
+        o.unlink()
+    return BuildInfo(so, seconds, "".join(log), False)
 
 
 _lib = None
@@ -117,11 +141,16 @@ def lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         cdll.imd_eam_rho.argtypes = [vp, vp, vp, vp,
                                      ctypes.POINTER(EamParams), ci, vp]
+        cdll.imd_eam_rho_e.argtypes = [vp, vp, vp, vp, vp,
+                                       ctypes.POINTER(EamParams), ci, vp]
         cdll.imd_eam_force.argtypes = [vp, vp, vp, vp,
                                        ctypes.POINTER(EamParams), ci, vp]
+        cdll.imd_eam_force_s.argtypes = [vp, vp, vp, vp, vp,
+                                         ctypes.POINTER(EamParams), ci, vp]
         cdll.imd_compact.argtypes = [vp, vp, vp, vp, vp,
                                      ci, ci, ci, ci, ci, vp]
-        for fn in (cdll.imd_eam_rho, cdll.imd_eam_force, cdll.imd_compact):
+        for fn in (cdll.imd_eam_rho, cdll.imd_eam_rho_e, cdll.imd_eam_force,
+                   cdll.imd_eam_force_s, cdll.imd_compact):
             fn.restype = ci
         _lib = cdll
     return _lib

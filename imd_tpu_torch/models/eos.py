@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from imd_tpu import units
+from imd_tpu_torch import units
 from imd_tpu_torch.models import widerange as wr
 
 EV_TO_K = wr.EV_TO_K

@@ -1,9 +1,13 @@
 """Potentials for the fused hot loop (port of imd_tpu/models/potential.py).
 
 What the slice needs: the tabulated ``PotTable`` with the reference's
-3-point interpolation (host NumPy, used only to fit), ``analytic_eam``, and
-the single-window monomial-Horner ``PolyPotential`` that the kernels
-evaluate, fitted by ``to_fastpoly`` in NumPy float64.
+3-point interpolation (host NumPy, used only to fit), the IMD table files
+(``read_pot_table`` for formats 1 and 2, ``read_eam``, ``write_pot_table``),
+``analytic_eam``, and the single-window monomial-Horner ``PolyPotential``
+that the kernels evaluate, fitted by ``to_fastpoly`` in NumPy float64.
+Only the reference's default 3-point interpolation is ported
+(``with_interpolation``); the 4-point and spline modes raise
+NotImplementedError.
 
 Precision mirrors the JAX package exactly: tables and the PolyPotential's
 ``coef``/``begin``/``end`` are stored rounded to their dtype (float32 by
@@ -14,6 +18,7 @@ table dtype, and the kernels bake the float64 ``host`` tuples.
 from __future__ import annotations
 
 import dataclasses
+import io
 from typing import Sequence
 
 import numpy as np
@@ -41,6 +46,10 @@ class PotTable:
     @property
     def ncols(self) -> int:
         return self.table.shape[0]
+
+    @property
+    def max_end(self) -> float:
+        return float(np.max(self.end))
 
     def interp(self, col: int, x):
         """Quadratic interpolation of column ``col`` at NumPy ``x``;
@@ -104,6 +113,120 @@ def _make_table(cols, begin, end, step, dtype=np.float32) -> PotTable:
         step=step.astype(dt),
         invstep=(1.0 / np.where(step == 0, 1.0, step)).astype(dt),
         length=np.asarray([len(c) for c in cols], np.int32))
+
+
+def with_interpolation(pt: PotTable, mode: str, radial: bool = True):
+    """The table in interpolation ``mode`` (``pot_interp``): only the
+    reference's default '3point' is ported."""
+    if mode in ("3point", "", None):
+        return pt
+    if mode in ("4point", "spline"):
+        raise NotImplementedError(
+            f"pot_interp {mode} is not ported (only 3point)")
+    raise ValueError(f"unknown interpolation mode {mode!r} "
+                     "(3point | 4point | spline)")
+
+
+def read_pot_table(path: str, ncols: int, radial: bool = True,
+                   dtype=np.float32) -> PotTable:
+    """Read an IMD potential table (format 1 or 2, from the #F header)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    fmt = 1
+    body_start = 0
+    have_header = False
+    for i, line in enumerate(lines):
+        if line.startswith("#"):
+            have_header = True
+            if len(line) > 1 and line[1] == "F":
+                parts = line[2:].split()
+                fmt = int(parts[0])
+                if int(parts[1]) != ncols:
+                    raise ValueError(f"potential table has {parts[1]} "
+                                     f"columns, expected {ncols}")
+            if len(line) > 1 and line[1] == "E":
+                body_start = i + 1
+                break
+        elif have_header:
+            raise ValueError("corrupted potential file header")
+        else:
+            break
+    body = "\n".join(lines[body_start:])
+    if fmt == 1:
+        return _read_format1(body, ncols, radial, dtype)
+    if fmt == 2:
+        return _read_format2(body, ncols, dtype)
+    raise ValueError(f"unknown potential format {fmt}")
+
+
+def _read_format1(body: str, ncols: int, radial: bool, dtype) -> PotTable:
+    """r^2 column + ncols value columns; a radial column is shifted so its
+    last sample is zero."""
+    data = np.atleast_2d(np.loadtxt(io.StringIO(body)))
+    if data.shape[1] != ncols + 1:
+        raise ValueError(f"format-1 table rows have {data.shape[1]} values,"
+                         f" expected {ncols + 1}")
+    r2 = data[:, 0]
+    npot = len(r2)
+    r2_step = (r2[-1] - r2[0]) / (npot - 1)
+    cols, end = [], []
+    for i in range(ncols):
+        col = data[:, i + 1].copy()
+        nz = np.nonzero(col)[0]
+        n = int(nz[-1]) + 1 if len(nz) else 0
+        end.append(r2[n - 1] if n else 0.0)
+        if radial and n and col[npot - 1] != 0.0:
+            col[:npot] -= col[npot - 1]
+        cols.append(col)
+    return _make_table(cols, [r2[0]] * ncols, end, [r2_step] * ncols, dtype)
+
+
+def _read_format2(body: str, ncols: int, dtype) -> PotTable:
+    """ncols (begin, end, step) triples, then each column's samples."""
+    vals = [float(t) for t in body.split()]
+    begin, end, step, length = [], [], [], []
+    pos = 0
+    for _ in range(ncols):
+        b, e, s = vals[pos:pos + 3]
+        pos += 3
+        begin.append(b)
+        end.append(e)
+        step.append(s)
+        length.append(int(1 + (e - b) / s + 0.49))
+    cols = []
+    for i in range(ncols):
+        cols.append(np.asarray(vals[pos:pos + length[i]], np.float64))
+        pos += length[i]
+    return _make_table(cols, begin, end, step, dtype)
+
+
+def write_pot_table(pt: PotTable, path: str):
+    """Write a table in IMD format 2 (readable by the reference)."""
+    table = np.asarray(pt.table, np.float64)
+    with open(path, "w") as f:
+        f.write(f"#F 2 {pt.ncols}\n#E\n")
+        for i in range(pt.ncols):
+            f.write(f"{float(pt.begin[i]):.16e} {float(pt.end[i]):.16e} "
+                    f"{float(pt.step[i]):.16e}\n")
+        for i in range(pt.ncols):
+            for v in table[i, :pt.length[i]]:
+                f.write(f"{v:.16e}\n")
+            f.write("\n")
+
+
+def read_eam(core_potential_file: str, embedding_energy_file: str,
+             el_density_file: str, ntypes: int,
+             dtype=np.float32) -> EAMPotential:
+    """The reference's three EAM2 tables (setup_potentials,
+    imd_potential.c:43).  Single species only: the multi-type transpose
+    of the density columns belongs to the alloy slice."""
+    if ntypes != 1:
+        raise NotImplementedError(
+            f"ntypes {ntypes}: EAM alloys are not ported (ROADMAP A8)")
+    return EAMPotential(
+        pair=read_pot_table(core_potential_file, 1, True, dtype),
+        rho=read_pot_table(el_density_file, 1, True, dtype),
+        embed=read_pot_table(embedding_energy_file, 1, False, dtype))
 
 
 def _smoothed_samples(fn, dfn_dr2, r2: np.ndarray, r2_cut: float):

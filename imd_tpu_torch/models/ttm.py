@@ -112,7 +112,7 @@ def make_params(cfg_ttm, box, cutoff: float) -> TTMParams:
 
 
 def make_grid(params: TTMParams, dtype=torch.float32,
-              device="cpu") -> TTMGrid:
+              device="cuda") -> TTMGrid:
     nx = params.nx
 
     def z():
@@ -419,3 +419,10 @@ def gather_atom_coupling_flat(grid: TTMGrid, fdi_flat):
     (move_atoms_ttm, imd_integrate.c:738-748)."""
     idx = fdi_flat.to(torch.int64)
     return grid.xi[idx], grid.vcom[idx]
+
+
+def electron_energy_total(grid: TTMGrid, params: TTMParams) -> torch.Tensor:
+    """Electron energy summed over the active cells: the .eng ttm_eng
+    column (imd_tpu/models/ttm.py:878)."""
+    act = active_mask(grid, params)
+    return torch.where(act, grid.U * grid.natoms, 0.0).sum()

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from imd_tpu import units
+from imd_tpu_torch import units
 
 BOLTZMAN = units.KB_J
 EMASS = units.EMASS_KG

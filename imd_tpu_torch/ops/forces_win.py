@@ -44,7 +44,7 @@ def _poly_consts(poly):
 
 
 def _cheb_t(x, b, e):
-    """Window transform as one FMA + clip to [-1, 1]."""
+    """Window transform x*a - b0, clipped to [-1, 1]."""
     inv_half = 2.0 / (e - b)
     return torch.clamp(x * inv_half - (b * inv_half + 1.0), -1.0, 1.0)
 
@@ -146,6 +146,7 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
     fill(p.rho_v, *rho_h)
     fill(p.pair_g, _deriv_coefs(pair_h), *pair_h[1:])
     fill(p.rho_g, _deriv_coefs(rho_h), *rho_h[1:])
+    fill(p.pair_v, *pair_h)
     p.rcut2 = rcut2
     for k in range(9):
         p.h[k] = h[k]

@@ -77,15 +77,18 @@ class CellGrid:
         return dataclasses.replace(self, **kw)
 
 
-def choose_grid(box: Box, cutoff: float, skin: float,
-                n_atoms: int) -> CellGrid:
-    """Most cells with height >= cutoff + skin, capacity from the mean
-    density with 1.6x headroom (init_cells, imd_geom_3d.c:118)."""
+def choose_grid(box: Box, cutoff: float, skin: float, n_atoms: int,
+                capacity: int = 0, headroom: float = 1.6) -> CellGrid:
+    """Most cells with height >= cutoff + skin (init_cells,
+    imd_geom_3d.c:118); ``capacity`` 0 sizes it from the mean density
+    with ``headroom`` slack, rounded up to a multiple of 8."""
     reach = cutoff + skin
     dims = tuple(max(1, int(math.floor(h / reach))) for h in box.heights())
-    mean = n_atoms / (dims[0] * dims[1] * dims[2])
-    capacity = max(4, int(math.ceil(mean * 1.6)))
-    return CellGrid(box=box, dims=dims, capacity=((capacity + 7) // 8) * 8,
+    if capacity <= 0:
+        mean = n_atoms / (dims[0] * dims[1] * dims[2])
+        capacity = max(4, int(math.ceil(mean * headroom)))
+        capacity = ((capacity + 7) // 8) * 8
+    return CellGrid(box=box, dims=dims, capacity=int(capacity),
                     cutoff=float(cutoff), skin=float(skin))
 
 
@@ -121,9 +124,11 @@ def measured_capacity(grid: CellGrid, pos, safety: float = 1.25,
 
 
 def optimize_grid_dims(box: Box, cutoff: float, skin: float, pos,
-                       dtype=np.float32, max_capacity: int = 0):
+                       dtype=np.float32, max_capacity: int = 0,
+                       headroom_slots: int = 1):
     """Cell dims minimizing the dense-sweep cost cap^2 * n_cells over the
-    measured occupancy (+1 migration slot), searching cell edges within
+    measured occupancy (+``headroom_slots`` migration slots, rounded up to
+    a multiple of 8), searching cell edges within
     1/0.8 of the smallest; returns (dims, capacity), or None when
     ``max_capacity`` > 0 and no candidate fits."""
     reach = cutoff + skin
@@ -150,7 +155,7 @@ def optimize_grid_dims(box: Box, cutoff: float, skin: float, pos,
                      cutoff=float(cutoff), skin=float(skin))
         raw = measured_capacity(g, pos, safety=1.0, extra=0, multiple=1,
                                 dtype=dtype)
-        cap = max(8, ((raw + 1 + 7) // 8) * 8)
+        cap = max(8, ((raw + headroom_slots + 7) // 8) * 8)
         if max_capacity > 0 and cap > max_capacity:
             continue
         score = cap * cap * dims[0] * dims[1] * dims[2]

@@ -92,20 +92,25 @@ def _bin_flat_host(grid: CellGrid, pos, arrays, cap, dtype):
     return out, overflow
 
 
-def make_scene(grid: CellGrid, pos, *, mom=None, mass=None,
-               dtype=torch.float32, device="cpu") -> Scene:
-    """Build a single-species Scene (type 0, ids 0..N-1) from flat host
-    arrays.  ``mom`` injects momenta (tests feed both packages the same
-    NumPy momenta instead of either package's random generator)."""
+def make_scene(grid: CellGrid, pos, *, mom=None, mass=None, type=None,
+               vtype=None, id=None, dtype=torch.float32,
+               device="cuda") -> Scene:
+    """Build a Scene from flat host arrays (default: type 0, vtype = type,
+    ids 0..N-1).  ``mom`` injects momenta (tests feed both packages the
+    same NumPy momenta instead of either package's random generator)."""
     dt = np_dtype(dtype)
     pos = np.asarray(pos, dt)
     N = pos.shape[0]
     mom = np.zeros((N, 3), dt) if mom is None else np.asarray(mom, dt)
     mass = np.ones((N,), dt) if mass is None else np.asarray(mass, dt)
-    zeros = np.zeros((N,), np.int32)
+    type_ = (np.zeros((N,), np.int32) if type is None
+             else np.asarray(type, np.int32))
+    vtype = type_ if vtype is None else np.asarray(vtype, np.int32)
+    id_ = (np.arange(N, dtype=np.int32) if id is None
+           else np.asarray(id, np.int32))
     arrays = {"mask": np.ones((N,), bool), "mom": mom, "mass": mass,
-              "type": zeros, "vtype": zeros,
-              "id": np.arange(N, dtype=np.int32), "epot": np.zeros((N,), dt)}
+              "type": type_, "vtype": vtype, "id": id_,
+              "epot": np.zeros((N,), dt)}
     out, overflow = _bin_flat_host(grid, pos, arrays, grid.capacity, dt)
     t = {k: torch.as_tensor(v).to(device) for k, v in out.items()}
     return Scene(pos=t["pos"], mom=t["mom"],
@@ -115,3 +120,53 @@ def make_scene(grid: CellGrid, pos, *, mom=None, mass=None,
                  overflow=torch.tensor(overflow, dtype=torch.int32,
                                        device=device),
                  grid=grid)
+
+
+def flatten_atoms(scene: Scene) -> dict:
+    """Flat [M, ...] views (M = n_cells * cap) of every field plus the
+    mask (imd_tpu Scene.flatten_atoms)."""
+    M = scene.grid.n_cells * scene.grid.capacity
+    return {"pos": scene.pos.reshape(M, 3), "mom": scene.mom.reshape(M, 3),
+            "force": scene.force.reshape(M, 3),
+            "epot": scene.epot.reshape(M), "mass": scene.mass.reshape(M),
+            "type": scene.type.reshape(M), "vtype": scene.vtype.reshape(M),
+            "id": scene.id.reshape(M), "mask": scene.mask.reshape(M)}
+
+
+def n_atoms(scene: Scene) -> int:
+    return int(scene.mask.sum())
+
+
+def rebin(scene: Scene, grid: CellGrid | None = None) -> Scene:
+    """Re-bin the live atoms into ``grid`` (default: the scene's own) on
+    the host, resetting the skin reference (fix_cells; imd_tpu's rebin
+    runs the same binning traced).  Epot and forces are not carried."""
+    grid = scene.grid if grid is None else grid
+    flat = {k: v.detach().cpu().numpy()
+            for k, v in flatten_atoms(scene).items()}
+    m = flat["mask"]
+    return make_scene(grid, flat["pos"][m], mom=flat["mom"][m],
+                      mass=flat["mass"][m], type=flat["type"][m],
+                      vtype=flat["vtype"][m], id=flat["id"][m],
+                      dtype=scene.pos.dtype, device=scene.pos.device)
+
+
+def grow_capacity(scene: Scene, new_cap: int) -> Scene:
+    """The same Scene with the slot axis padded to ``new_cap`` (dead slots:
+    -1 for int fields, 0 for floats); slot assignments stay valid
+    (alloc_cell, imd_alloc.c:551)."""
+    extra = new_cap - scene.grid.capacity
+    if extra <= 0:
+        return scene
+
+    def pad(a):
+        widths = [0, 0] * (a.ndim - 4) + [0, extra]
+        fill = -1 if not a.is_floating_point() else 0
+        return torch.nn.functional.pad(a, widths, value=fill)
+
+    return scene.replace(
+        pos=pad(scene.pos), mom=pad(scene.mom), force=pad(scene.force),
+        epot=pad(scene.epot), mass=pad(scene.mass), type=pad(scene.type),
+        vtype=pad(scene.vtype), id=pad(scene.id),
+        nbl_ref_pos=pad(scene.nbl_ref_pos),
+        grid=scene.grid.replace(capacity=new_cap))

@@ -60,7 +60,8 @@ def setup():
     jeam = j_pot.eam_to_fastpoly(j_pot.analytic_eam(
         r_cut=5.0, r0=4.05 / math.sqrt(2.0), E_c=3.39, dtype=jnp.float32),
         deg=12)
-    return jscene, jeam, convert.from_scene(jscene), convert.from_eam(jeam)
+    return (jscene, jeam, convert.from_scene(jscene, device="cpu"),
+            convert.from_eam(jeam))
 
 
 def _by_id(ids, arr):
@@ -101,9 +102,9 @@ def test_fused_ttm_step_matches_jax(setup):
     counters = StepCounters()
     tstep, tcl = t_fused.make_fused_ttm_step(tscene, team, DT, tp, FEGEos(),
                                              LASER, counters=counters)
-    tgrid0 = convert.from_ttm_grid(jgrid0)
-    for name, v in convert.to_numpy(t_ttm.make_grid(tp, torch.float64)
-                                    ).items():
+    tgrid0 = convert.from_ttm_grid(jgrid0, device="cpu")
+    for name, v in convert.to_numpy(t_ttm.make_grid(tp, torch.float64,
+                                                    device="cpu")).items():
         np.testing.assert_array_equal(v, convert.to_numpy(tgrid0)[name])
     tcarry = (tcl, tgrid0,
               torch.full((tcl.mass.numel(),), -1, dtype=torch.int32), 0)

@@ -98,7 +98,8 @@ def test_grid_and_binning_match_jax(dtype):
     js = j_make_scene(jg, pos, mom=mom, mass=mass, dtype=dtype)
     ts = t_make_scene(tg, pos, mom=mom, mass=mass,
                       dtype={np.float32: torch.float32,
-                             np.float64: torch.float64}[dtype])
+                             np.float64: torch.float64}[dtype],
+                      device="cpu")
     for name in ("pos", "mom", "mass", "type", "vtype", "id",
                  "nbl_ref_pos", "overflow"):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
@@ -167,7 +168,7 @@ def test_maxwell_is_exact_and_drift_free():
                             [0, 0, diag[2]], dtype=np.float64)
     grid = t_geom.choose_grid(box, 5.0, skin=0.5, n_atoms=len(pos))
     s = t_make_scene(grid, pos, mass=np.full(len(pos), 26.9815),
-                     dtype=torch.float64)
+                     dtype=torch.float64, device="cpu")
     s = integrate.maxwell(s, 0.026, torch.Generator().manual_seed(4))
     p = s.mom[s.mask]
     assert p.sum(0).abs().max() < 1e-12
@@ -176,18 +177,31 @@ def test_maxwell_is_exact_and_drift_free():
 
 
 def test_port_never_imports_jax():
-    """The card's machine has no JAX: importing the port and running a tiny
-    fused TTM step on the CPU must not load it."""
+    """The card's machine has no JAX: importing every module of the port
+    and the CLI, and running a tiny fused TTM step and the driver's entry
+    point on the CPU, must load neither jax nor any module of imd_tpu."""
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(1)\n"
-        "from imd_tpu_torch import flagship\n"
+        "import imd_tpu_torch\n"
+        "for m in pkgutil.walk_packages(imd_tpu_torch.__path__,\n"
+        "                               'imd_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from imd_tpu_torch import __main__ as cli, flagship\n"
+        "try:\n"
+        "    cli.main(['--help'])\n"
+        "except SystemExit:\n"
+        "    pass\n"
         "f = flagship.build(device='cpu', atoms=864)\n"
         "f.run(2)\n"
         "assert f.counters.steps == 2\n"
-        "assert 'jax' not in sys.modules, 'imd_tpu_torch imported jax'\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'imd_tpu' or m.startswith('imd_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), \
+        res.stdout + res.stderr

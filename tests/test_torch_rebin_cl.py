@@ -73,7 +73,7 @@ def test_rebin_matches_jax(far_mover):
     jcl2, jfdi2 = jax.jit(j_rebin.make_rebin_cl(jgrid))(jcl,
                                                         jnp.asarray(fdi))
     tcl2, tfdi2 = t_rebin.make_rebin_cl(convert.from_grid(jgrid))(
-        convert.from_cl(jcl), torch.as_tensor(fdi))
+        convert.from_cl(jcl, device="cpu"), torch.as_tensor(fdi))
     assert int(tcl2.overflow) == int(jcl2.overflow) == int(far_mover)
     n_moved = int((np.asarray(jcl2.ids) != np.asarray(jcl.ids)).sum())
     assert n_moved > 20, "the free flight must move atoms across cells"
