@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, and back to NumPy.
 
-The ``from_*`` functions take imd_tpu objects (Box, CellGrid,
-PolyPotential, EAMPotential, Scene, CLState, TTMParams, TTMGrid) and read
+The ``from_*`` functions take imd_tpu objects (Box, CellGrid, PotTable,
+PolyPotential, EAMPotential with any number of type columns, Scene with
+its types, CLState, TTMParams, TTMGrid) and read
 every field through ``np.asarray``, so this module never imports jax: it
 works on anything with those attributes.  ``to_numpy`` turns a port
 dataclass back into a dict of NumPy arrays.  The parity tests use both so
@@ -15,7 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from imd_tpu_torch.models.potential import EAMPotential, PolyPotential
+from imd_tpu_torch.models.potential import (EAMPotential, PolyPotential,
+                                            PotTable)
 from imd_tpu_torch.models.ttm import TTMGrid, TTMParams
 from imd_tpu_torch.ops.fused_step import CLState
 from imd_tpu_torch.ops.geometry import Box, CellGrid
@@ -48,10 +50,18 @@ def from_poly(poly) -> PolyPotential:
                          max_err=tuple(poly.max_err), host=poly.host)
 
 
+def from_table(pt) -> PotTable:
+    return PotTable(**{f.name: np.array(np.asarray(getattr(pt, f.name)))
+                       for f in dataclasses.fields(PotTable)})
+
+
 def from_eam(eam) -> EAMPotential:
-    """A fastpoly EAM set (the kernels' input)."""
-    return EAMPotential(pair=from_poly(eam.pair), rho=from_poly(eam.rho),
-                        embed=from_poly(eam.embed))
+    """An EAM set of tables or of fastpoly fits (the kernels' input), with
+    all its type columns."""
+    def one(p):
+        return from_table(p) if hasattr(p, "table") else from_poly(p)
+    return EAMPotential(pair=one(eam.pair), rho=one(eam.rho),
+                        embed=one(eam.embed))
 
 
 def from_scene(scene, device="cuda") -> Scene:

@@ -7,7 +7,10 @@ skin 0.5 with the dense-sweep grid of ``optimize_grid_dims(max_capacity=
 32)``, mass 26.9815, dt 0.1, Maxwell momenta at 0.026 eV from a seeded
 ``torch.Generator``, and the 1-D TTM (FEG EOS, explicit solver,
 ``fd_nx = max(8, gx // 2)``, ``fd_min_atoms = 8``) with the Lambert-Beer
-laser of bench.py, in float32.  Counterpart of ``__graft_entry__._build``
+laser of bench.py, in float32.  With ``ntypes`` > 1 the run is bench.py's
+``--ntypes``: types ``index % ntypes`` and the tables tiled to ntypes^2 /
+ntypes identical columns, the same physics at the alloy kernels' cost.
+Counterpart of ``__graft_entry__._build``
 plus ``bench.py:114-258``; it differs in that atoms keep the generator's
 order (bench.py re-reads them from a first binning) and the momenta come
 from torch's generator, not jax.random.
@@ -27,7 +30,8 @@ from imd_tpu_torch.utils.generate import fcc
 from imd_tpu_torch import integrate
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.models.eos import FEGEos
-from imd_tpu_torch.models.potential import analytic_eam, eam_to_fastpoly
+from imd_tpu_torch.models.potential import (EAMPotential, analytic_eam,
+                                            eam_to_fastpoly, tile_columns)
 from imd_tpu_torch.ops.fused_step import make_fused_step, make_fused_ttm_step
 from imd_tpu_torch.ops.geometry import (Box, CellGrid, np_dtype,
                                         optimize_grid_dims)
@@ -71,8 +75,28 @@ class Flagship:
         return time.perf_counter() - t0
 
 
+def eam_tables(ntypes: int = 1, scales=None, dtype=np.float32):
+    """The flagship's analytic Al EAM tables.  For ``ntypes`` > 1 each
+    table is tiled to ntypes^2 (pair, rho) / ntypes (embed) columns,
+    column k scaled by ``scales`` = (pair, rho, embed)[..][k]; without
+    ``scales`` the columns are identical (bench.py --ntypes)."""
+    eam = analytic_eam(r_cut=CUTOFF, r0=ALAT / math.sqrt(2.0), E_c=3.39,
+                       dtype=dtype)
+    if ntypes == 1:
+        return eam
+    nc = ntypes * ntypes
+    pair, rho, embed = scales or ([1.0] * nc, [1.0] * nc, [1.0] * ntypes)
+    if (len(pair), len(rho), len(embed)) != (nc, nc, ntypes):
+        raise ValueError(f"ntypes {ntypes} takes {nc}, {nc} and {ntypes} "
+                         "column scales")
+    return EAMPotential(pair=tile_columns(eam.pair, pair),
+                        rho=tile_columns(eam.rho, rho),
+                        embed=tile_columns(eam.embed, embed))
+
+
 def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
-          temperature: float = TEMPERATURE, timer=no_timer) -> Flagship:
+          temperature: float = TEMPERATURE, timer=no_timer,
+          ntypes: int = 1) -> Flagship:
     """Build the flagship run on ``device`` (host set-up in NumPy).
 
     ``temperature`` (eV) of the Maxwell start: at the configured 0.026 eV
@@ -85,15 +109,16 @@ def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
     pos, _, diag = fcc((ncell, ncell, ncell), ALAT)
     box = Box.create([diag[0], 0, 0], [0, diag[1], 0], [0, 0, diag[2]],
                      dtype=dt)
-    eam_run = eam_to_fastpoly(analytic_eam(
-        r_cut=CUTOFF, r0=ALAT / math.sqrt(2.0), E_c=3.39, dtype=dt), deg=12)
+    eam_run = eam_to_fastpoly(eam_tables(ntypes, dtype=dt), deg=12)
+    typ = (np.arange(len(pos), dtype=np.int32) % ntypes if ntypes > 1
+           else None)
     # off the exact cell boundaries, as bench.py does
     pos0 = pos.astype(dt) + 1.0
     dims, cap = optimize_grid_dims(box, CUTOFF, SKIN, pos0, dtype=dt,
                                    max_capacity=32)
     grid = CellGrid(box=box, dims=dims, capacity=cap, cutoff=CUTOFF,
                     skin=SKIN)
-    scene = make_scene(grid, pos0, mass=np.full(len(pos0), MASS),
+    scene = make_scene(grid, pos0, type=typ, mass=np.full(len(pos0), MASS),
                        dtype=dtype, device=device)
     if int(scene.overflow):
         raise RuntimeError(f"initial binning overflow {int(scene.overflow)}"
@@ -102,7 +127,7 @@ def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
     scene = integrate.maxwell(scene, temperature, gen)
     counters = StepCounters()
     if not ttm:
-        step, cl = make_fused_step(scene, eam_run, TIMESTEP,
+        step, cl = make_fused_step(scene, eam_run, TIMESTEP, ntypes=ntypes,
                                    timer=timer, counters=counters)
         return Flagship(n_atoms=len(pos0), grid=grid, ttm=False, step=step,
                         carry=(cl,), counters=counters, scene=scene,
@@ -111,8 +136,8 @@ def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
                      fd_min_atoms=8)
     tp = ttm_mod.make_params(tcfg, box, CUTOFF)
     step, cl = make_fused_ttm_step(scene, eam_run, TIMESTEP, tp,
-                                   FEGEos(), LASER, timer=timer,
-                                   counters=counters)
+                                   FEGEos(), LASER, ntypes=ntypes,
+                                   timer=timer, counters=counters)
     fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
                      device=device)
     carry = (cl, ttm_mod.make_grid(tp, dtype, device), fdi, 0)

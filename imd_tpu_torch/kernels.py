@@ -39,11 +39,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 NPOLY = 16            # padded Horner length baked per polynomial (deg <= 15)
-MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (K1/K2/K4/K5),
+MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (the stencil family),
                       # candidates (K3)
+MAX_NT = 4            # species the multi-type kernels take (eam_win.cu)
+# order of the tables in the multi-type coefficient buffer
+# [4][ntypes^2][NPOLY + 2] (eam_win.cu: T_RHO_V ...)
+MT_TABLES = ("rho_v", "pair_v", "pair_g", "rho_g")
 
 LAUNCHES = {"eam_rho": 0, "eam_force": 0, "compact": 0, "eam_rho_e": 0,
-            "eam_force_s": 0}
+            "eam_force_s": 0, "eam_rho_mt": 0, "eam_force_mt": 0,
+            "eam_rho_e_mt": 0, "eam_force_s_mt": 0}
 
 
 def reset_launches() -> None:
@@ -149,8 +154,19 @@ def lib() -> ctypes.CDLL:
                                          ctypes.POINTER(EamParams), ci, vp]
         cdll.imd_compact.argtypes = [vp, vp, vp, vp, vp,
                                      ci, ci, ci, ci, ci, vp]
+        # multi-type: xi, typ, tab, nt, [dF,] outputs, params, nc, stream
+        pp = ctypes.POINTER(EamParams)
+        cdll.imd_eam_rho_mt.argtypes = [vp, vp, vp, ci, vp, vp, pp, ci, vp]
+        cdll.imd_eam_rho_e_mt.argtypes = [vp, vp, vp, ci, vp, vp, vp, pp,
+                                          ci, vp]
+        cdll.imd_eam_force_mt.argtypes = [vp, vp, vp, ci, vp, vp, pp, ci,
+                                          vp]
+        cdll.imd_eam_force_s_mt.argtypes = [vp, vp, vp, ci, vp, vp, vp, pp,
+                                            ci, vp]
         for fn in (cdll.imd_eam_rho, cdll.imd_eam_rho_e, cdll.imd_eam_force,
-                   cdll.imd_eam_force_s, cdll.imd_compact):
+                   cdll.imd_eam_force_s, cdll.imd_compact,
+                   cdll.imd_eam_rho_mt, cdll.imd_eam_rho_e_mt,
+                   cdll.imd_eam_force_mt, cdll.imd_eam_force_s_mt):
             fn.restype = ci
         _lib = cdll
     return _lib

@@ -2,9 +2,11 @@
 
 What the slice needs: the tabulated ``PotTable`` with the reference's
 3-point interpolation (host NumPy, used only to fit), the IMD table files
-(``read_pot_table`` for formats 1 and 2, ``read_eam``, ``write_pot_table``),
-``analytic_eam``, and the single-window monomial-Horner ``PolyPotential``
-that the kernels evaluate, fitted by ``to_fastpoly`` in NumPy float64.
+(``read_pot_table`` for formats 1 and 2, ``read_eam`` with the alloy
+column transpose, ``write_pot_table``), ``analytic_eam``, ``tile_columns``
+(type-pair column sets made from one column), and the single-window
+monomial-Horner ``PolyPotential`` that the kernels evaluate, fitted per
+column by ``to_fastpoly`` in NumPy float64.
 Only the reference's default 3-point interpolation is ported
 (``with_interpolation``); the 4-point and spline modes raise
 NotImplementedError.
@@ -74,7 +76,20 @@ class PotTable:
 
 @dataclasses.dataclass(eq=False)
 class EAMPotential:
-    """EAM2 set: pair phi(r^2), transfer rho(r^2), embedding F(rho)."""
+    """EAM2 set: pair phi(r^2), transfer rho(r^2), embedding F(rho).
+
+    Column layout for ``ntypes`` species (imd_tpu's EAMPotential):
+
+    - ``pair``: [ntypes^2] columns, col = t_i*ntypes + t_j (as the
+      reference's files);
+    - ``rho``: [ntypes^2] columns in the ENGINE convention, col =
+      s*ntypes + h: the density a source atom of type s contributes at a
+      host atom of type h.  This is the transpose of the reference's file
+      layout (col = host*ntypes + source, imd_forces_nbl.c:468/551);
+      ``read_eam`` transposes on load, so every engine indexes
+      col = t_j*ntypes + t_i for the density at i from j;
+    - ``embed``: [ntypes] columns (not radial).
+    """
     pair: object
     rho: object
     embed: object
@@ -214,19 +229,50 @@ def write_pot_table(pt: PotTable, path: str):
             f.write("\n")
 
 
+def _take_columns(tab: PotTable, cols) -> PotTable:
+    cols = np.asarray(cols)
+    return PotTable(table=tab.table[cols], begin=tab.begin[cols],
+                    end=tab.end[cols], step=tab.step[cols],
+                    invstep=tab.invstep[cols], length=tab.length[cols])
+
+
+def transpose_pair_columns(tab: PotTable, ntypes: int) -> PotTable:
+    """Reorder [ntypes^2] type-pair columns by (i,j) -> (j,i): the
+    reference's host-first rho layout (col = host*ntypes + source) into
+    the engine's source-first one.  No-op for ntypes == 1."""
+    if ntypes <= 1:
+        return tab
+    return _take_columns(
+        tab, np.arange(ntypes * ntypes).reshape(ntypes, ntypes).T.ravel())
+
+
+def tile_columns(tab: PotTable, scales) -> PotTable:
+    """``len(scales)`` copies of a one-column table, copy k scaled by
+    ``scales[k]`` (in the table's dtype): type-pair column sets with the
+    physics of one species (all scales 1, as bench.py --ntypes tiles
+    them) or with genuinely different columns."""
+    if tab.ncols != 1:
+        raise ValueError(f"tile_columns takes a one-column table, got "
+                         f"{tab.ncols} columns")
+    out = _take_columns(tab, np.zeros(len(scales), np.int64))
+    scale = np.asarray(scales, np.float64).astype(tab.table.dtype)
+    return dataclasses.replace(out, table=out.table * scale[:, None])
+
+
 def read_eam(core_potential_file: str, embedding_energy_file: str,
              el_density_file: str, ntypes: int,
              dtype=np.float32) -> EAMPotential:
     """The reference's three EAM2 tables (setup_potentials,
-    imd_potential.c:43).  Single species only: the multi-type transpose
-    of the density columns belongs to the alloy slice."""
-    if ntypes != 1:
-        raise NotImplementedError(
-            f"ntypes {ntypes}: EAM alloys are not ported (ROADMAP A8)")
+    imd_potential.c:43).  The el_density_file's columns are host-first
+    (col = it*ntypes + jt: the density at a host of type it from a source
+    of type jt); they are transposed here into the engine's source-first
+    layout (see EAMPotential)."""
+    nc = ntypes * ntypes
     return EAMPotential(
-        pair=read_pot_table(core_potential_file, 1, True, dtype),
-        rho=read_pot_table(el_density_file, 1, True, dtype),
-        embed=read_pot_table(embedding_energy_file, 1, False, dtype))
+        pair=read_pot_table(core_potential_file, nc, True, dtype),
+        rho=transpose_pair_columns(
+            read_pot_table(el_density_file, nc, True, dtype), ntypes),
+        embed=read_pot_table(embedding_energy_file, ntypes, False, dtype))
 
 
 def _smoothed_samples(fn, dfn_dr2, r2: np.ndarray, r2_cut: float):

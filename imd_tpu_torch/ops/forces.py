@@ -27,8 +27,24 @@ def min_image(box: Box, dr: torch.Tensor) -> torch.Tensor:
     return frac @ h
 
 
-def eam_forces_n2(pos, mask, box: Box, eam):
-    """All-pairs single-species EAM oracle.  pos [N,3], mask [N] bool.
+def _interp_cols(tab, cols, x):
+    """(value, 2 dV/dx) of ``tab`` with a column index per element:
+    each column is evaluated on all of ``x`` and selected where it
+    applies (``interp`` takes one column at a time)."""
+    v = torch.zeros_like(x)
+    g = torch.zeros_like(x)
+    for c in torch.unique(cols).tolist():
+        vc, gc = tab.interp(c, x)
+        sel = cols == c
+        v = torch.where(sel, vc, v)
+        g = torch.where(sel, gc, g)
+    return v, g
+
+
+def eam_forces_n2(pos, mask, box: Box, eam, typ=None, ntypes: int = 1):
+    """All-pairs EAM oracle.  pos [N,3], mask [N] bool, ``typ`` [N] integer
+    types for ``ntypes`` > 1 (columns as in EAMPotential: pair
+    t_i*ntypes + t_j, density at i from j t_j*ntypes + t_i).
 
     Returns (F [N,3], rho [N], nneigh [N]) over pairs within the EAM
     cutoff.  Potentials are evaluated with ``interp`` (the JAX oracle's
@@ -39,14 +55,24 @@ def eam_forces_n2(pos, mask, box: Box, eam):
     eye = torch.eye(N, dtype=torch.bool, device=pos.device)
     valid = (~eye) & mask[:, None] & mask[None, :] & (r2 < eam.cutoff2)
     r2c = torch.clamp(r2, min=1e-12)
-    _, phig = eam.pair.interp(0, r2c)
-    rho_ij, rho_g_ij = eam.rho.interp(0, r2c)
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    if ntypes == 1:
+        _, phig = eam.pair.interp(0, r2c)
+        rho_ij, rho_g_ij = eam.rho.interp(0, r2c)
+    else:
+        t = torch.clamp(typ.to(torch.int64), 0, ntypes - 1)
+        t_i, t_j = t[:, None], t[None, :]
+        _, phig = _interp_cols(eam.pair, t_i * ntypes + t_j, r2c)
+        rho_ij, rho_g_ij = _interp_cols(eam.rho, t_j * ntypes + t_i, r2c)
     phig = torch.where(valid, phig, zero)
     rho_ij = torch.where(valid, rho_ij, zero)
     rho_g_ij = torch.where(valid, rho_g_ij, zero)
     rho = rho_ij.sum(1)
-    _, df = eam.embed.interp(0, torch.clamp(rho, min=1e-12))
+    rho_c = torch.clamp(rho, min=1e-12)
+    if ntypes == 1:
+        _, df = eam.embed.interp(0, rho_c)
+    else:
+        _, df = _interp_cols(eam.embed, t, rho_c)
     df = torch.where(mask, 0.5 * df, zero)
     s = phig + df[:, None] * rho_g_ij + df[None, :] * rho_g_ij.T
     s = torch.where(valid, s, zero)

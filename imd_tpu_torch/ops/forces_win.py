@@ -1,5 +1,6 @@
-"""Forces-only single-species EAM on the cells-last layout (port of
-imd_tpu/ops/forces_win.py:208 ``eam_kernels_win_split``).
+"""Forces-only EAM on the cells-last layout (port of
+imd_tpu/ops/forces_win.py:208 ``eam_kernels_win_split`` and :470
+``eam_kernels_win_split_mt``).
 
 Two passes, as in the JAX package: the R pass (K1, ``eam_rho``) sums the
 host density rho_i and the neighbour count, the embedding derivative
@@ -7,11 +8,23 @@ dF = F'(rho) runs as plain torch, and the F pass (K2, ``eam_force``) sums
 the combined pair + embedding force with grad = phi'(r^2) + (dF_i + dF_j)
 rho'(r^2).
 
+Alloys (2 <= ntypes <= 4) run the same two passes with one table column
+per type pair (K6 ``eam_rho_mt``, K7 ``eam_force_mt``): the pair tables
+read col = t_i*nt + t_j, the density at i from j reads the source-first
+col = t_j*nt + t_i, so grad = phi'(t_i,t_j) + dF_i rho'(t_j,t_i) + dF_j
+rho'(t_i,t_j), and the embedding is selected per type.  A slot is dead
+where ``typ`` < 0.  The kernels evaluate each pair once from each side
+with the column of that side, which equals the JAX package's half stencil
+only for symmetric pair tables: the wrappers raise ValueError for an
+asymmetric one (imd_tpu sends ``asympot`` runs to its oracle engine).
+The density tables may be fully asymmetric.
+
 Each pass is a hand-written CUDA kernel (csrc/eam_win.cu) with a plain
 torch version of the same function beside it (``eam_rho_plain``,
-``eam_force_plain``): a full 27-offset stencil sweep over ``_roll_cells``
-views.  The wrappers take the plain version only for CPU tensors; on a CUDA
-tensor they launch the kernel or raise.
+``eam_force_plain``, ``eam_rho_mt_plain``, ``eam_force_mt_plain``): a full
+27-offset stencil sweep over ``_roll_cells`` views.  The wrappers take the
+plain version only for CPU tensors; on a CUDA tensor they launch the kernel
+or raise.
 
 The Horner helpers below mirror the constants the Pallas kernels bake
 (imd_tpu/ops/forces_pallas.py:55-109, 554-575): the window transform clips
@@ -27,6 +40,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from imd_tpu_torch import kernels
@@ -128,9 +142,103 @@ def eam_force_plain(xi, alive, dF, eam, grid):
     return F
 
 
+def check_mt_tables(eam, ntypes: int) -> None:
+    """What the multi-type passes take: 2..MAX_NT species, ntypes^2 pair
+    and density columns, ntypes embedding columns, and a symmetric pair
+    table (see the module docstring)."""
+    nt = ntypes
+    if not 2 <= nt <= kernels.MAX_NT:
+        raise ValueError(f"the multi-type EAM passes take 2 to "
+                         f"{kernels.MAX_NT} species, got ntypes {nt}")
+    for name, want in (("pair", nt * nt), ("rho", nt * nt), ("embed", nt)):
+        have = len(getattr(eam, name).host)
+        if have != want:
+            raise ValueError(f"ntypes {nt} needs {want} {name} columns, "
+                             f"the potential has {have}")
+    pair = eam.pair.host
+    for a in range(nt):
+        for b in range(a + 1, nt):
+            if pair[a * nt + b] != pair[b * nt + a]:
+                raise ValueError(
+                    f"asymmetric pair table: column ({a},{b}) differs "
+                    f"from ({b},{a}); the full-stencil kernels evaluate "
+                    "a pair from both sides and take symmetric pair "
+                    "tables only")
+
+
+def _select_cols(r2, col, consts, horner):
+    """``horner(r2, consts[c])`` of the column ``col`` names per pair."""
+    out = torch.zeros_like(r2)
+    for c, cs in enumerate(consts):
+        out = torch.where(col == c, horner(r2, cs), out)
+    return out
+
+
+def _mt_stencil_pairs(xi, typ, grid, nt):
+    """``_stencil_pairs`` with the pair's two columns: yields (dx, dy, dz,
+    r2, valid, roll, col_ij, col_ji) with col_ij = t_i*nt + t_j (the pair
+    tables; the density at j from i) and col_ji = t_j*nt + t_i (the
+    density at i from j)."""
+    t = typ.clamp(0, nt - 1)
+    for *pair, roll in _stencil_pairs(xi, typ >= 0, grid):
+        ti, tj = t[:, None, :], roll(t)[None, :, :]
+        yield (*pair, roll, ti * nt + tj, tj * nt + ti)
+
+
+def eam_rho_mt_plain(xi, typ, eam, grid, ntypes):
+    """Plain torch K6: (rho, nn) [cap, NC], zero in dead slots."""
+    rho = torch.zeros_like(xi[:, 0])
+    nn = torch.zeros_like(rho)
+    for _, _, _, r2, valid, _, _, col_ji in _mt_stencil_pairs(
+            xi, typ, grid, ntypes):
+        vf = valid.to(xi.dtype)
+        rho = rho + (_select_cols(r2, col_ji, eam.rho.host, _horner_v)
+                     * vf).sum(1)
+        nn = nn + vf.sum(1)
+    return rho, nn
+
+
+def _mt_grad_pairs(xi, typ, dF, eam, grid, nt):
+    """Per stencil offset (dx, dy, dz, grad [cap_i, cap_j, NC]) of the
+    multi-type F pass, grad zero outside the cutoff."""
+    for dx, dy, dz, r2, valid, roll, col_ij, col_ji in _mt_stencil_pairs(
+            xi, typ, grid, nt):
+        pg = _select_cols(r2, col_ij, eam.pair.host, _horner_g)
+        g_ij = _select_cols(r2, col_ji, eam.rho.host, _horner_g)
+        g_ji = _select_cols(r2, col_ij, eam.rho.host, _horner_g)
+        grad = (pg + dF[:, None, :] * g_ij + roll(dF)[None, :, :] * g_ji) \
+            * valid.to(xi.dtype)
+        yield dx, dy, dz, grad
+
+
+def eam_force_mt_plain(xi, typ, dF, eam, grid, ntypes):
+    """Plain torch K7: F [cap, 3, NC], zero in dead slots."""
+    F = torch.zeros_like(xi)
+    for dx, dy, dz, grad in _mt_grad_pairs(xi, typ, dF, eam, grid, ntypes):
+        F = F - torch.stack([(grad * d).sum(1) for d in (dx, dy, dz)], 1)
+    return F
+
+
+def embed_mt(eam, rho, typ, ntypes):
+    """(F(rho), 2 dF/drho) with the embedding column of each slot's type,
+    at max(rho, 1e-12) (imd_tpu/ops/forces_win.py:642-648); plain torch,
+    as it is XLA in the JAX package."""
+    t = typ.clamp(0, ntypes - 1)
+    rho_c = torch.clamp(rho, min=1e-12)
+    v = torch.zeros_like(rho)
+    g = torch.zeros_like(rho)
+    for p in range(ntypes):
+        vp, gp = eam.embed.interp(p, rho_c)
+        v = torch.where(t == p, vp, v)
+        g = torch.where(t == p, gp, g)
+    return v, g
+
+
 @functools.lru_cache(maxsize=16)
 def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
-    """ctypes EamParams from the baked host tuples (all hashable)."""
+    """ctypes EamParams from the baked host tuples (all hashable);
+    ``rho_h``/``pair_h`` None leaves the polynomials empty (the multi-type
+    kernels read theirs from ``_mt_table``)."""
     p = kernels.EamParams()
 
     def fill(dst, c, b, e):
@@ -143,10 +251,11 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
         dst.a = inv_half
         dst.b0 = b * inv_half + 1.0
 
-    fill(p.rho_v, *rho_h)
-    fill(p.pair_g, _deriv_coefs(pair_h), *pair_h[1:])
-    fill(p.rho_g, _deriv_coefs(rho_h), *rho_h[1:])
-    fill(p.pair_v, *pair_h)
+    if rho_h is not None:
+        fill(p.rho_v, *rho_h)
+        fill(p.pair_g, _deriv_coefs(pair_h), *pair_h[1:])
+        fill(p.rho_g, _deriv_coefs(rho_h), *rho_h[1:])
+        fill(p.pair_v, *pair_h)
     p.rcut2 = rcut2
     for k in range(9):
         p.h[k] = h[k]
@@ -157,14 +266,16 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
     return p
 
 
-def _check_cuda_inputs(xi, alive, grid):
+def _check_cuda_inputs(xi, alive, grid, alive_dtype=torch.bool):
+    """``alive`` is the bool mask of the single-species kernels or, with
+    ``alive_dtype`` int32, the types of the multi-type ones."""
     cap, _, nc = xi.shape
     if xi.dtype != torch.float32 or not xi.is_contiguous():
         raise TypeError("eam kernels take contiguous float32 xi [cap,3,NC]")
-    if alive.dtype != torch.bool or alive.shape != (cap, nc) \
+    if alive.dtype != alive_dtype or alive.shape != (cap, nc) \
             or not alive.is_contiguous() or alive.device != xi.device:
-        raise TypeError("eam kernels take contiguous bool alive [cap,NC] "
-                        "on the device of xi")
+        raise TypeError(f"eam kernels take contiguous {alive_dtype} "
+                        "alive/typ [cap,NC] on the device of xi")
     if nc != grid.n_cells:
         raise ValueError(f"xi has {nc} cells, grid {grid.dims} has "
                          f"{grid.n_cells}")
@@ -173,11 +284,48 @@ def _check_cuda_inputs(xi, alive, grid):
                          f"{kernels.MAX_GRID_Y} slots (gridDim.y)")
 
 
+def _check_cuda_dF(dF, xi, name):
+    cap, _, nc = xi.shape
+    if dF.dtype != torch.float32 or dF.shape != (cap, nc) \
+            or not dF.is_contiguous() or dF.device != xi.device:
+        raise TypeError(f"{name} takes contiguous float32 dF [cap,NC] "
+                        "on the device of xi")
+
+
 def _params_for(eam, grid, cap):
+    """EamParams of a single-species set; of the geometry alone for
+    ``eam`` None."""
     h = tuple(float(v) for v in grid.box.h.reshape(-1))
-    return _eam_params(_poly_consts(eam.rho), _poly_consts(eam.pair),
-                       float(grid.cutoff) ** 2, h, tuple(grid.box.pbc),
-                       tuple(grid.dims), int(cap))
+    rho_h, pair_h = (None, None) if eam is None else \
+        (_poly_consts(eam.rho), _poly_consts(eam.pair))
+    return _eam_params(rho_h, pair_h, float(grid.cutoff) ** 2, h,
+                       tuple(grid.box.pbc), tuple(grid.dims), int(cap))
+
+
+@functools.lru_cache(maxsize=8)
+def _mt_table_cached(rho_h, pair_h, device):
+    rows = {"rho_v": rho_h, "pair_v": pair_h,
+            "pair_g": tuple((_deriv_coefs(c), *c[1:]) for c in pair_h),
+            "rho_g": tuple((_deriv_coefs(c), *c[1:]) for c in rho_h)}
+    tab = np.zeros((len(kernels.MT_TABLES), len(rho_h), kernels.NPOLY + 2),
+                   np.float32)
+    for k, name in enumerate(kernels.MT_TABLES):
+        for col, (c, b, e) in enumerate(rows[name]):
+            if len(c) > kernels.NPOLY:
+                raise ValueError(f"polynomial degree {len(c) - 1} exceeds "
+                                 f"the kernel's {kernels.NPOLY - 1}")
+            inv_half = 2.0 / (e - b)
+            tab[k, col, :len(c)] = c
+            tab[k, col, kernels.NPOLY:] = inv_half, b * inv_half + 1.0
+    return torch.from_numpy(tab).to(device)
+
+
+def _mt_table(eam, device):
+    """The multi-type kernels' coefficient buffer [4, ntypes^2, NPOLY + 2]
+    float32 on ``device`` (tables in the order of kernels.MT_TABLES; per
+    row the coefficients of t^k, then a and b0 of the window transform),
+    made once per potential and device."""
+    return _mt_table_cached(eam.rho.host, eam.pair.host, str(device))
 
 
 def eam_rho(xi, alive, eam, grid):
@@ -205,17 +353,56 @@ def eam_force(xi, alive, dF, eam, grid):
             raise TypeError(f"unsupported device {xi.device}")
         return eam_force_plain(xi, alive, dF, eam, grid)
     _check_cuda_inputs(xi, alive, grid)
+    _check_cuda_dF(dF, xi, "eam_force")
     cap, _, nc = xi.shape
-    if dF.dtype != torch.float32 or dF.shape != (cap, nc) \
-            or not dF.is_contiguous() or dF.device != xi.device:
-        raise TypeError("eam_force takes contiguous float32 dF [cap,NC] "
-                        "on the device of xi")
     F = torch.empty_like(xi)
     err = kernels.lib().imd_eam_force(
         xi.data_ptr(), alive.data_ptr(), dF.data_ptr(), F.data_ptr(),
         _params_for(eam, grid, cap), nc, kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_force")
     kernels.LAUNCHES["eam_force"] += 1
+    return F
+
+
+def eam_rho_mt(xi, typ, eam, grid, ntypes):
+    """K6 wrapper: (rho, nn) [cap, NC] of the slots with typ >= 0, 0 where
+    dead; ``typ`` [cap, NC] int32."""
+    check_mt_tables(eam, ntypes)
+    if not xi.is_cuda:
+        if xi.device.type != "cpu":
+            raise TypeError(f"unsupported device {xi.device}")
+        return eam_rho_mt_plain(xi, typ, eam, grid, ntypes)
+    _check_cuda_inputs(xi, typ, grid, torch.int32)
+    cap, _, nc = xi.shape
+    rho = torch.empty((cap, nc), dtype=xi.dtype, device=xi.device)
+    nn = torch.empty_like(rho)
+    err = kernels.lib().imd_eam_rho_mt(
+        xi.data_ptr(), typ.data_ptr(), _mt_table(eam, xi.device).data_ptr(),
+        ntypes, rho.data_ptr(), nn.data_ptr(), _params_for(None, grid, cap),
+        nc, kernels.stream_ptr(xi.device))
+    kernels.check(err, "eam_rho_mt")
+    kernels.LAUNCHES["eam_rho_mt"] += 1
+    return rho, nn
+
+
+def eam_force_mt(xi, typ, dF, eam, grid, ntypes):
+    """K7 wrapper: F [cap, 3, NC] of the slots with typ >= 0, 0 where
+    dead."""
+    check_mt_tables(eam, ntypes)
+    if not xi.is_cuda:
+        if xi.device.type != "cpu":
+            raise TypeError(f"unsupported device {xi.device}")
+        return eam_force_mt_plain(xi, typ, dF, eam, grid, ntypes)
+    _check_cuda_inputs(xi, typ, grid, torch.int32)
+    _check_cuda_dF(dF, xi, "eam_force_mt")
+    cap, _, nc = xi.shape
+    F = torch.empty_like(xi)
+    err = kernels.lib().imd_eam_force_mt(
+        xi.data_ptr(), typ.data_ptr(), _mt_table(eam, xi.device).data_ptr(),
+        ntypes, dF.data_ptr(), F.data_ptr(), _params_for(None, grid, cap),
+        nc, kernels.stream_ptr(xi.device))
+    kernels.check(err, "eam_force_mt")
+    kernels.LAUNCHES["eam_force_mt"] += 1
     return F
 
 
@@ -235,6 +422,24 @@ def eam_kernels_win_split(xi, mask, eam, grid,
         _, emb_g = eam.embed.interp(0, rho)
         dF = 0.5 * emb_g * maskf
         F = eam_force(xi, mask, dF, eam, grid)
+    if not count_neighbors:
+        nn = torch.zeros_like(rho)
+    return F, rho, nn
+
+
+def eam_kernels_win_split_mt(xi, typ, mask, eam, grid, ntypes: int,
+                             count_neighbors: bool = False, timer=no_timer):
+    """Forces-only split EAM for 2..4 species (single device).
+
+    ``typ`` [cap, NC] int32 with -1 in dead slots, ``mask`` = typ >= 0.
+    Returns (F, rho, nneigh) as ``eam_kernels_win_split``, the contract of
+    imd_tpu's eam_kernels_win_split_mt in its single-device mode."""
+    with timer("r_pass"):
+        rho, nn = eam_rho_mt(xi, typ, eam, grid, ntypes)
+    with timer("f_pass"):
+        _, emb_g = embed_mt(eam, rho, typ, ntypes)
+        dF = 0.5 * emb_g * mask.to(xi.dtype)
+        F = eam_force_mt(xi, typ, dF, eam, grid, ntypes)
     if not count_neighbors:
         nn = torch.zeros_like(rho)
     return F, rho, nn

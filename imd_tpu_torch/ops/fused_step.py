@@ -9,16 +9,17 @@ The state stays cells-last across steps,
     CLState.alive [cap, NC] bool
 
 so the force kernels read it as is.  A step: the EAM R and F passes (K1,
-K2), then for the TTM step ``calc_ttm`` and the xi-coupled leapfrog
+K2; with ``ntypes`` 2 to 4 the alloy pair K6, K7, which reads ``typ``),
+then for the TTM step ``calc_ttm`` and the xi-coupled leapfrog
 (move_atoms_ttm, imd_integrate.c:581), then the skin check, and on a
 trigger the sort-free migration rebin (K3 inside).  The JAX package's
 ``lax.cond(need, rebin)`` is one host sync per step here, and calc_ttm adds
 one for its substep count; both are counted in ``StepCounters``.
 
-Only the single-species windowed engine on one device is ported: the
-``engine``, ``mesh``, ``nrb_state``, ``ntypes``, TMM, VLAT, ELECPRESS,
-COLRAD and FDTD arguments raise NotImplementedError unless left at their
-defaults.
+Only the windowed engine on one device is ported, for up to 4 species:
+the ``engine``, ``mesh``, ``nrb_state``, TMM, VLAT, ELECPRESS, COLRAD and
+FDTD arguments raise NotImplementedError unless left at their defaults,
+and so does ``ntypes`` > 4 (not fused in imd_tpu either).
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ import torch
 
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.ops.forces_fast import _from_cl, _to_cl
-from imd_tpu_torch.ops.forces_win import SENTINEL_DEAD, eam_kernels_win_split
+from imd_tpu_torch.kernels import MAX_NT
+from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, check_mt_tables,
+                                          eam_kernels_win_split,
+                                          eam_kernels_win_split_mt)
 from imd_tpu_torch.ops.rebin_cl import make_rebin_cl
 from imd_tpu_torch.phases import StepCounters, no_timer
 from imd_tpu_torch.scene import Scene
@@ -88,8 +92,33 @@ def _only_ported(**set_args):
     for name, is_set in set_args.items():
         if is_set:
             raise NotImplementedError(
-                f"{name} is not ported (only the single-species windowed "
-                "engine on one device)")
+                f"{name} is not ported (only the windowed engine on one "
+                "device)")
+
+
+def _make_forces(eam_run, grid, ntypes: int, timer):
+    """forces(cl, count_neighbors) -> (F, nneigh): K1/K2 for one species,
+    K6/K7 with the types for 2..MAX_NT (imd_tpu fused_step.py:143-155)."""
+    if ntypes > MAX_NT:
+        raise NotImplementedError(
+            f"ntypes {ntypes} is not ported: the fused step takes up to "
+            f"{MAX_NT} species, more run imd_tpu's general step (ROADMAP "
+            "A9)")
+    if ntypes > 1:
+        check_mt_tables(eam_run, ntypes)
+
+    def forces(cl, count_neighbors):
+        if ntypes > 1:
+            F, _, nn = eam_kernels_win_split_mt(
+                cl.xi, cl.typ, cl.alive, eam_run, grid, ntypes,
+                count_neighbors=count_neighbors, timer=timer)
+        else:
+            F, _, nn = eam_kernels_win_split(
+                cl.xi, cl.alive, eam_run, grid,
+                count_neighbors=count_neighbors, timer=timer)
+        return F, nn
+
+    return forces
 
 
 def _leapfrog_skin(cl: CLState, mom2, skin2: float, dt: float,
@@ -112,19 +141,20 @@ def make_fused_step(template: Scene, eam_run, timestep: float,
     """Returns (step, cl0): step(cl) -> (cl', nneigh [cap, NC], zero: the
     pure-MD step counts no neighbours).
 
-    EAM forces (K1/K2) + leapfrog + skin check with a migration rebin on
-    trigger.  ``eam_run`` must be fastpoly."""
+    EAM forces (K1/K2, or K6/K7 for ``ntypes`` 2..4) + leapfrog + skin
+    check with a migration rebin on trigger.  ``eam_run`` must be
+    fastpoly."""
     _only_ported(engine=engine != "win", mesh=mesh is not None,
-                 nrb_state=nrb_state is not None, ntypes=ntypes != 1)
+                 nrb_state=nrb_state is not None)
     grid = template.grid
+    forces = _make_forces(eam_run, grid, ntypes, timer)
     dt = float(timestep)
     skin2 = (0.5 * grid.skin) ** 2
     rebin = make_rebin_cl(grid)
     counters = StepCounters() if counters is None else counters
 
     def step(cl: CLState):
-        F, _, nn = eam_kernels_win_split(cl.xi, cl.alive, eam_run, grid,
-                                         timer=timer)
+        F, nn = forces(cl, False)
         with timer("leapfrog"):
             af = cl.alive.to(cl.xi.dtype)
             mom2 = (cl.mom + dt * F) * af[:, None, :]
@@ -151,15 +181,17 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
     Returns (step, cl0): step(cl, tgrid, fdi, k) -> (cl', tgrid', fdi',
     k+1) with ``fdi`` the flat [cap*NC] int32 stored FD index (-1 = no
     history) and ``k`` the host step number.  EAM forces with neighbour
-    counts (K1/K2), calc_ttm on flat component views of the cells-last
-    state, xi-coupled leapfrog p += dt (F + xi m (v - vcom)), skin check,
-    and on trigger the migration rebin carrying fdi with its atom."""
+    counts (K1/K2, or K6/K7 for ``ntypes`` 2..4), calc_ttm on flat
+    component views of the cells-last state, xi-coupled leapfrog
+    p += dt (F + xi m (v - vcom)), skin check, and on trigger the
+    migration rebin carrying fdi with its atom."""
     _only_ported(engine=engine != "win", mesh=mesh is not None,
                  nrb_state=nrb_state is not None,
                  tmm_params=tmm_params is not None, vlat=vlat is not None,
                  elecpress=bool(elecpress), colrad=colrad is not None,
-                 fdtd_params=fdtd_params is not None, ntypes=ntypes != 1)
+                 fdtd_params=fdtd_params is not None)
     grid = template.grid
+    forces = _make_forces(eam_run, grid, ntypes, timer)
     dtype = template.pos.dtype
     dt = float(timestep)
     skin2 = (0.5 * grid.skin) ** 2
@@ -167,8 +199,7 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
     counters = StepCounters() if counters is None else counters
 
     def step(cl: CLState, tgrid, fdi, k: int):
-        F, _, nn = eam_kernels_win_split(cl.xi, cl.alive, eam_run, grid,
-                                         count_neighbors=True, timer=timer)
+        F, nn = forces(cl, True)
         x = cl.xi[:, 0, :].reshape(-1)
         mom3 = tuple(cl.mom[:, c, :].reshape(-1) for c in range(3))
         massf = cl.mass.reshape(-1)

@@ -2,12 +2,14 @@
 ``Simulation`` for the configurations ``_fused_eligible`` sends to
 ``run_fused``, simulation.py:1791, 2463-3155).
 
-A run reads its configuration (``SimConfig``), loads the EAM tables and
-the atoms (an ``_fcc``-style generated lattice or a ``.chkpt``), bins them
+A run reads its configuration (``SimConfig``), loads the EAM tables (the
+reference's three files, or one DYNAMO setfl/funcfl file; up to 4 species)
+and the atoms (an ``_fcc``-style generated lattice or a ``.chkpt``), bins them
 on the host, and runs the fused cells-last hot loop (ops/fused_step.py)
 in blocks that end on the next I/O step.  At every block end where some
 output is due, ``observe`` evaluates the observables with the B4 kernels
-(ops/forces_pallas.py: K4 ``eam_rho_e``, K5 ``eam_force_s``) and the
+(ops/forces_pallas.py: K4 ``eam_rho_e``, K5 ``eam_force_s``; with
+``ntypes`` > 1 the alloy pair K8, K9) and the
 driver writes ``.eng``, ``.chkpt``/``.itr``, ``.ttm`` and the ``.laser``
 log at their intervals.  A rebin that overflows the cell capacity grows
 the slot axis and retries the block from the pre-block state; past
@@ -42,10 +44,12 @@ from imd_tpu_torch.io.eng import EngWriter
 from imd_tpu_torch.io.ttm_io import write_ttm
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.models.eos import FEGEos
+from imd_tpu_torch.kernels import MAX_NT
 from imd_tpu_torch.models.potential import (EAMPotential, eam_to_fastpoly,
                                             read_eam, with_interpolation)
+from imd_tpu_torch.models.setfl import maybe_read_dynamo
 from imd_tpu_torch.ops.forces_fast import _from_cl
-from imd_tpu_torch.ops.forces_pallas import eam_kernels_cl
+from imd_tpu_torch.ops.forces_pallas import eam_kernels_cl, eam_kernels_cl_mt
 from imd_tpu_torch.ops.fused_step import (cl_to_scene, make_fused_step,
                                           make_fused_ttm_step)
 from imd_tpu_torch.ops.geometry import (Box, CellGrid, choose_grid,
@@ -75,7 +79,10 @@ _FLAT_INTERACTION_TAGS = (
 
 # (what, predicate, ROADMAP item): settings this port does not run yet
 UNPORTED = (
-    ("ntypes > 1 (EAM alloys)", lambda c: c.ntypes > 1, "A8"),
+    (f"ntypes > {MAX_NT} (imd_tpu's general step)",
+     lambda c: c.ntypes > MAX_NT, "A9"),
+    ("asympot with ntypes > 1 (imd_tpu's oracle engine)",
+     lambda c: c.asympot and c.ntypes > 1, "A9"),
     ("pair potentials (potfile, lj_*, morse_*, buck_*)",
      lambda c: not c.core_potential_file
      or _any_set(c, ("potfile", "lj_epsilon", "morse_epsilon", "buck_a")),
@@ -203,12 +210,26 @@ class Simulation:
     # -- setup ----------------------------------------------------------
     def _load_potential(self):
         """The EAM-table branch of imd_tpu's _load_potential
-        (simulation.py:180-207)."""
+        (simulation.py:180-207): a DYNAMO setfl/funcfl file by its suffix
+        (one file carries all three tables), else the reference's three
+        table files."""
         cfg = self.cfg
         dt = np_dtype(self.dtype)
-        eam = read_eam(self._path(cfg.core_potential_file),
-                       self._path(cfg.embedding_energy_file),
-                       self._path(cfg.el_density_file), cfg.ntypes, dt)
+        dyn = maybe_read_dynamo(self._path(cfg.core_potential_file), dt)
+        if dyn is not None:
+            eam, meta = dyn
+            # the tables have nelem^2 columns with stride nelem; every
+            # engine indexes col = s*ntypes + h, so another ntypes would
+            # read wrong columns
+            if meta["nelem"] != cfg.ntypes:
+                raise ValueError(
+                    f"{cfg.core_potential_file}: {meta['nelem']} "
+                    f"element(s) but ntypes={cfg.ntypes}; set ntypes "
+                    f"to the file's element count (or trim the file)")
+        else:
+            eam = read_eam(self._path(cfg.core_potential_file),
+                           self._path(cfg.embedding_energy_file),
+                           self._path(cfg.el_density_file), cfg.ntypes, dt)
         self.eam = EAMPotential(
             pair=with_interpolation(eam.pair, cfg.pot_interp),
             rho=with_interpolation(eam.rho, cfg.pot_interp),
@@ -363,22 +384,28 @@ class Simulation:
             laser = cfg.laser if cfg.laser.sigma_e > 0 else None
             step, cl = make_fused_ttm_step(
                 template, self.eam_run, cfg.timestep, self.ttm_params,
-                self.eos, laser, counters=self.counters)
+                self.eos, laser, ntypes=cfg.ntypes, counters=self.counters)
             fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
                              device=self.device)
             return step, (cl, ttm_grid, fdi, step0)
         step, cl = make_fused_step(template, self.eam_run, cfg.timestep,
-                                   counters=self.counters)
+                                   ntypes=cfg.ntypes, counters=self.counters)
         return (lambda c: (step(c)[0],)), (cl,)
 
     def observe(self, cl, template: Scene, gstep: int, ttm_grid):
-        """Observables of a cells-last state with the B4 kernels (K4, K5):
-        per-atom epot, host density, forces, virial and pressure tensor,
-        plus the kinetic energy; sums in float64."""
+        """Observables of a cells-last state with the B4 kernels (K4, K5;
+        K8, K9 with ntypes > 1, simulation.py:2592): per-atom epot, host
+        density, forces, virial and pressure tensor, plus the kinetic
+        energy; sums in float64."""
         self.n_observe += 1
+        nt = self.cfg.ntypes
         with self.timers.section("observe"):
-            F, epot, rho, _, virial, presstens = eam_kernels_cl(
-                cl.xi, cl.alive, self.eam_run, template.grid)
+            if nt > 1:
+                F, epot, rho, _, virial, presstens = eam_kernels_cl_mt(
+                    cl.xi, cl.typ, cl.alive, self.eam_run, template.grid, nt)
+            else:
+                F, epot, rho, _, virial, presstens = eam_kernels_cl(
+                    cl.xi, cl.alive, self.eam_run, template.grid)
             af = cl.alive.to(torch.float64)
             ekin = 0.5 * ((cl.mom.double() ** 2).sum(1) * af
                           / cl.mass.double()).sum()

@@ -361,7 +361,8 @@ def test_stop_file_ends_the_run_with_a_checkpoint(rundir, tmp_path):
 
 
 UNPORTED = {
-    "ntypes": ("ntypes 2\nmasses 26.98 26.98\n", "A8"),
+    "ntypes": ("ntypes 5\nmasses 26.98 26.98 26.98 26.98 26.98\n", "A9"),
+    "asympot": ("ntypes 2\nmasses 26.98 26.98\nasympot 1\n", "A9"),
     "potfile": ("potfile pair.pt\n", "A9"),
     "stiweb": ("stiweb_a 1.0\n", "A9"),
     "ensemble_nvt": ("ensemble nvt\n", "A9"),
