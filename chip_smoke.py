@@ -58,11 +58,27 @@ and no JAX.  Phases, each of which fails the run loudly:
    kernels must skip the cells across it); and K6-K9 on the two-species
    run's last state with the run1m tables scaled per column.
 
-Prints one JSON line each for the two main paths, the bench configuration
-and the two driver runs, one {"kernels": [...]} line (with each kernel's
-bound: the larger of its FLOPs over the float32 peak and its bytes over
-the memory rate, counted from this run's inputs), the card's name and
-power limit, and last {"ok": true, "device": {...}}.
+Phase 3 also holds the rolled-view split (B7): K10 eam_rho_half and K11
+eam_force_half, assembled, against their plain versions (the same
+flip-aware tolerances) and against K1/K2 (flips and rho to 1e-4, F to 5e-4
+of max: K1/K2 evaluate each pair from both sides, see ``check_half``) on
+the jittered flagship state and on the (3,2,2) grid with an open x face,
+and checks that two launches give the same bits; and B8:
+``compute_eam_forces_pallas2`` on the flagship Scene with the jittered
+positions equals ``compute_eam_forces_pallas`` (K4/K5), which are held
+against their plain versions on that state.  Phase 4 then runs the
+warmed main path twice more, with ``engine="split"`` (K10/K11 once per
+step, K1/K2 never) and ``engine="ab"`` (K4/K5 once per step), after
+holding each engine's forces on the start state against the ``"win"``
+engine's.
+
+Prints one JSON line each for the four main paths (one and two species,
+"split", "ab"), the bench configuration and the two driver runs, one
+{"kernels": [...]} line (with each kernel's bound: the larger of its FLOPs
+over the float32 peak and its bytes over the memory rate, counted from
+this run's inputs, and its share, bound / ms; B8's rows carry K4/K5's
+times), the card's name and power limit, and last {"ok": true, "device":
+{...}}.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -99,6 +115,9 @@ FLOPS_PER_PAIR = {
     "eam_rho_e_mt": _DIST + 2 * _HV + 2 + 2 + 3,
     "eam_force_mt": _DIST + 2 * _HG + 4 + 6 + 3,
     "eam_force_s_mt": _DIST + 2 * _HG + 4 + 6 + 3 + 18,
+    # the rolled-view split does the same work per pair, each pair once
+    "eam_rho_half": _DIST + _HV + 2 + 2,
+    "eam_force_half": _DIST + 2 * _HG + 3 + 6 + 3,
 }
 # a pair of unlike types reads two different density columns (source j at
 # host i, source i at host j): one more density Horner than a like pair
@@ -344,14 +363,14 @@ def main() -> int:
     from imd_tpu_torch.ops import forces as t_forces
     from imd_tpu_torch.ops import forces_pallas as b4
     from imd_tpu_torch.ops import forces_win as win
-    from imd_tpu_torch.ops import rebin_cl
+    from imd_tpu_torch.ops import fused_step, rebin_cl
     from imd_tpu_torch.ops.forces_fast import _roll_cells
     from imd_tpu_torch.ops.fused_step import scene_to_cl
     from imd_tpu_torch.ops.geometry import (Box, choose_grid,
                                             measured_capacity, with_capacity)
     from imd_tpu_torch.models.potential import (EAMPotential,
                                                 eam_to_fastpoly, tile_columns)
-    from imd_tpu_torch.phases import CudaPhaseTimer
+    from imd_tpu_torch.phases import CudaPhaseTimer, no_timer
     from imd_tpu_torch.scene import make_scene
 
     smi = nvidia_smi_line()
@@ -672,6 +691,119 @@ def main() -> int:
     check_all(tcl4.xi, tcl4.alive, eam_s4, tgrid, tlabel + ", ntypes 4",
               tcl4.typ, 4)
 
+    # ---- B7: the rolled-view split, K10 and K11 ----------------------
+    def check_half(xi, alive, eam, grid, label):
+        """K10/K11 (assembled) against their plain versions and against
+        K1/K2 on one input, and two launches against each other; notes
+        the max abs errors over live slots and returns (nbr, dF, dFn,
+        max|F|).  Against the plain versions the tolerances are K1/K2's:
+        both evaluate each pair from its i side with the same bits.  K1/K2
+        evaluate each pair from both sides, and the two sides' r^2 differ
+        in the last bit (x_i - (x_j + s) against x_j - (x_i - s)); the
+        degree-12 fit's Horner (sum |c_k| ~ 2,400 for phi') turns that into
+        ~1e-4 eV/A per pair term, and an atom sums ~40 terms of up to
+        ~30 eV/A that cancel: so F is held to K2 at 5e-4 of max|F|."""
+        dims = grid.dims
+        rho_jump, _, grad_jump = jumps(eam)
+        live = int(alive.sum())
+        nbr = b4.make_neighbor_views(grid, xi.dtype, xi.device)(xi)
+        out_k = b4.eam_rho_half(xi, nbr, eam, grid, True)
+        again = b4.eam_rho_half(xi, nbr, eam, grid, True)
+        check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+              f"K10 gives the same bits twice ({label})")
+        rho_k, nn_k = b4._rho_nn(dims, *out_k)
+        rho_p, nn_p = b4._rho_nn(dims, *b4.eam_rho_half_plain(
+            xi, nbr, eam, grid, True))
+        rho_1, nn_1 = win.eam_rho(xi, alive, eam, grid)
+        rho_scale = float(rho_p[alive].abs().max())
+        agrees = []
+        for other, (rho_o, nn_o) in (("plain", (rho_p, nn_p)),
+                                     ("K1", (rho_1, nn_1))):
+            agree = alive & (nn_k == nn_o)
+            flips = alive & ~agree
+            drho = (rho_k - rho_o).abs()
+            rel = float(drho[agree].max()) / rho_scale
+            off = flip_residual(drho, (nn_k - nn_o).abs(), rho_jump, flips,
+                                True)
+            print(f"K10 eam_rho_half ({label}) vs {other}: nn differs in "
+                  f"{int(flips.sum())} of {live} live slots; elsewhere max "
+                  f"|drho| / max rho = {rel:.3e}; at those slots |drho| - "
+                  f"|dnn| rho_fit(rc^2) = {off:.3e}")
+            # K10 books half its pairs from the partner's side, whose r^2
+            # may differ from K1's in the last bit: more cutoff flips
+            # (7 of 1,000,188 slots on the main path's state), and the
+            # fit's Horner rounds each such pair differently (1.4e-5 of
+            # max rho there): against K1, 1e-4 for both
+            tol = 1e-5 if other == "plain" else 1e-4
+            check(int(flips.sum()) <= tol * live and rel <= tol
+                  and off <= tol * rho_scale,
+                  f"K10 against {other} ({label})")
+            agrees.append(agree)
+        errs["eam_rho_half"] = max(errs["eam_rho_half"],
+                                   float((rho_k - rho_p).abs()[alive].max()))
+        dF = 0.5 * eam.embed.interp(0, rho_p)[1] * alive.to(xi.dtype)
+        dFn = b4._dF_views(dF, dims)
+        out_k = b4.eam_force_half(xi, nbr, dF, dFn, eam, grid)
+        again = b4.eam_force_half(xi, nbr, dF, dFn, eam, grid)
+        check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+              f"K11 gives the same bits twice ({label})")
+        F_k = b4._forces(dims, *out_k)
+        F_p = b4._forces(dims, *b4.eam_force_half_plain(xi, nbr, dF, dFn,
+                                                        eam, grid))
+        F_1 = win.eam_force(xi, alive, dF, eam, grid)
+        f_max = float(F_p.abs().max())
+        flip_bound = (grad_jump * float(dF.abs().max()) + grad_jump) \
+            * grid.cutoff
+        for (other, F_o, nn_o), agree in zip(
+                (("plain", F_p, nn_p), ("K2", F_1, nn_1)), agrees):
+            dFn_ = (F_k - F_o).abs().amax(1)
+            rel = float(dFn_[agree].max()) / f_max
+            flips = alive & ~agree
+            f_flip = float((dFn_ / (nn_k - nn_o).abs().clamp(min=1))[flips]
+                           .max()) if bool(flips.any()) else 0.0
+            print(f"K11 eam_force_half ({label}) vs {other}: max |dF| / "
+                  f"max|F| = {rel:.3e} (max|F| {f_max:.3e}); at flip slots "
+                  f"|dF| per flip {f_flip:.3e} (bound {flip_bound:.3e})")
+            check(rel <= (1e-4 if other == "plain" else 5e-4)
+                  and f_flip <= flip_bound, f"K11 against {other} ({label})")
+        errs["eam_force_half"] = max(
+            errs["eam_force_half"],
+            float((F_k - F_p).abs().amax(1)[alive].max()))
+        return nbr, dF, dFn, f_max
+
+    # the CPU tests' grid with the open x face of the ablation film
+    tgrid_o = tgrid.replace(box=dataclasses.replace(tgrid.box, pbc=(0, 1, 1)))
+    tcl_o = scene_to_cl(make_scene(tgrid_o, tpos, device="cuda"))
+    check_half(tcl_o.xi, tcl_o.alive, eam, tgrid_o, tlabel + ", open x")
+    nbr_main, dF_half, dFn_main, f_scale = check_half(xi, alive, eam, grid,
+                                                      "main path")
+
+    # ---- B8: compute_eam_forces_pallas2 on the flagship Scene ------------
+    # with phase 3's jittered positions: the start lattice's forces cancel
+    # to ~1e-3 eV/A, where a relative comparison measures rounding only
+    scene_j = fused_step.cl_to_scene(cl0.replace(xi=xi), fs.scene)
+    kernels.reset_launches()
+    res2 = b4.compute_eam_forces_pallas2(scene_j, eam, count_neighbors=True)
+    b8_launches = {n: kernels.LAUNCHES[n] for n in ("eam_rho_e",
+                                                    "eam_force_s")}
+    check(b8_launches == {"eam_rho_e": 1, "eam_force_s": 1},
+          f"B8 launches K4 and K5 once each: {b8_launches}")
+    res1 = b4.compute_eam_forces_pallas(scene_j, eam)
+    for name in ("force", "epot", "rho", "num_neighs"):
+        check(torch.equal(getattr(res2, name), getattr(res1, name)),
+              f"B8 {name} equals compute_eam_forces_pallas's")
+    check(float(res2.virial) == 0.0 and not bool(res2.presstens.any()),
+          "B8 leaves the virial and pressure tensor at zero, as imd_tpu")
+    bcl = scene_to_cl(scene_j)
+    rho_b8 = b4.eam_rho_e_plain(bcl.xi, bcl.alive, eam, grid)[0]
+    dF_b8 = 0.5 * eam.embed.interp(0, rho_b8)[1] * bcl.alive.to(xi.dtype)
+    k4_b8, k5_b8, _ = check_b4(bcl.xi, bcl.alive, eam, grid, dF_b8,
+                               "B8, the flagship Scene, jittered")
+    errs["eam_rho_e_b8"], errs["eam_force_s_b8"] = k4_b8, k5_b8
+    print(f"B8 compute_eam_forces_pallas2: equals compute_eam_forces_pallas "
+          f"bitwise; launches {b8_launches}")
+    del res1, res2, bcl, rho_b8, dF_b8, scene_j
+
     # K3 through a whole rebin (3 phases, with the TTM fdi riding along);
     # lattice planes sit ~1 A from every cell face: 5% of the atoms jump
     # up to 1.3 A, so that some cross a face
@@ -769,6 +901,18 @@ def main() -> int:
             name = kname.split()[1]
             ms[name] = time_ms(lambda: ops[key](*args), 10)
             plain_ms[name] = time_ms(lambda: ops[key + "_p"](*args), reps)
+    # K10/K11 on the main path's views
+    for name, fn, fn_p in (
+            ("eam_rho_half",
+             lambda: b4.eam_rho_half(xi, nbr_main, eam, grid, True),
+             lambda: b4.eam_rho_half_plain(xi, nbr_main, eam, grid, True)),
+            ("eam_force_half",
+             lambda: b4.eam_force_half(xi, nbr_main, dF_half, dFn_main, eam,
+                                       grid),
+             lambda: b4.eam_force_half_plain(xi, nbr_main, dF_half,
+                                             dFn_main, eam, grid))):
+        ms[name] = time_ms(fn, 10)
+        plain_ms[name] = time_ms(fn_p, 2)
     oc = grid.capacity + 8
     ms["compact"] = time_ms(
         lambda: rebin_cl.compact(tgt, candf, candi, oc), 10)
@@ -790,7 +934,12 @@ def main() -> int:
     # and the outputs; the alloy kernels also read their coefficient buffer
     bytes_slot = {"eam_rho": 12 + 1 + 8, "eam_rho_e": 12 + 1 + 12,
                   "eam_force": 12 + 1 + 4 + 12,
-                  "eam_force_s": 12 + 1 + 4 + 12 + 24}
+                  "eam_force_s": 12 + 1 + 4 + 12 + 24,
+                  # xi and the 13 views in, i-sums and 13 j-partials out
+                  # (rho and nn; fx, fy, fz), K11 also dF and its views
+                  "eam_rho_half": 12 + 13 * 12 + 2 * 4 + 2 * 13 * 4,
+                  "eam_force_half": 12 + 13 * 12 + 4 + 13 * 4 + 3 * 4
+                  + 3 * 13 * 4}
     work = {n: (FLOPS_PER_PAIR[n] * pairs, bytes_slot[n] * slots)
             for n in bytes_slot}
     tab_bytes = win._mt_table(eam_s2, xi.device).numel() * 4
@@ -802,6 +951,7 @@ def main() -> int:
     work["compact"] = (0.0, sum(t.numel() * t.element_size()
                                 for t in (tgt, candf, candi)) + k3_out)
     del xi, xi_m, cl_m, cl_c, cl_k, cl_p, small, scl, tcl, tcl4, dF, dF2
+    del tcl_o, nbr_main, dF_half, dFn_main
     torch.cuda.empty_cache()
 
     # ---- 4. the main path (warmed so that the skin check triggers) -----
@@ -866,6 +1016,77 @@ def main() -> int:
         device=dev_name, nvidia_smi=smi)}))
     del fs2, cl, tg
     torch.cuda.empty_cache()
+
+    # ---- 4c. the rolled-view engines: the warmed run with "split" (K10,
+    # K11 over views built each step) and with "ab" (K4, K5) --------------
+    engine_launches = {}
+    for engine, on, off in (
+            ("split", ("eam_rho_half", "eam_force_half"),
+             ("eam_rho", "eam_force", "eam_rho_e", "eam_force_s")),
+            ("ab", ("eam_rho_e", "eam_force_s"),
+             ("eam_rho", "eam_force", "eam_rho_half", "eam_force_half"))):
+        t0 = time.perf_counter()
+        timer_e = CudaPhaseTimer()
+        fse = flagship.build(device="cuda", timer=timer_e,
+                             temperature=WARM_EV, engine=engine)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        cle = fse.carry[0]
+        # the first step's forces against the "win" engine from this start.
+        # The start is the perfect lattice, whose forces cancel to ~1e-3
+        # eV/A, the size of float32 rounding of their pair terms (see
+        # check_half): the difference is held to 5e-4 of the force scale
+        # of the same lattice with 0.1 A of disorder (phase 3's max|F|)
+        F_w, nn_w = fused_step._make_forces(fse.eam, fse.scene, 1, no_timer,
+                                            "win")(cle, True)
+        F_e, nn_e = fused_step._make_forces(fse.eam, fse.scene, 1, no_timer,
+                                            engine)(cle, True)
+        agree = cle.alive & (nn_w == nn_e)
+        n_flip = int((cle.alive & ~agree).sum())
+        f_abs = float((F_e - F_w).abs().amax(1)[agree].max())
+        f_start = float(F_w.abs().max())
+        print(f"engine {engine!r}: first step's forces vs 'win': nn differs "
+              f"in {n_flip} live slots, elsewhere max |dF| = {f_abs:.3e} "
+              f"eV/A (max|F| {f_start:.3e} at the start, {f_scale:.3e} on "
+              f"the disordered lattice: {f_abs / f_scale:.3e} of it)")
+        check(n_flip <= 1e-5 * fse.n_atoms and f_abs <= 5e-4 * f_scale,
+              f"engine {engine!r} forces against the 'win' engine")
+        del F_w, nn_w, F_e, nn_e, agree
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        report = timed_run(fse, timer_e)
+        le = dict(kernels.LAUNCHES)
+        report["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+        cl, tg, _, k = fse.carry
+        ids = torch.sort(cl.ids[cl.alive]).values
+        check(k == 63 and int(cl.overflow) == 0, f"{engine}: steps, overflow")
+        check(not tg.cfl_overflow and bool(torch.isfinite(tg.temp).all()),
+              f"{engine}: TTM CFL overflow or T_e not finite")
+        check(int(cl.alive.sum()) == fse.n_atoms and torch.equal(
+            ids.cpu(), torch.arange(fse.n_atoms, dtype=torch.int32)),
+            f"{engine}: atom count and id set conserved")
+        check(report["run_counts"]["rebins"] > 0 and le["compact"] > 0,
+              f"the {engine} main path must rebin (K3)")
+        for name in on:
+            check(le[name] == 63, f"{engine}: {name} launched {le[name]} "
+                  "times in 63 steps")
+        for name in off:
+            check(le[name] == 0, f"{engine}: {name} launched {le[name]} "
+                  "times (expected 0)")
+        print(json.dumps({f"main_path_{engine}": dict(
+            report, engine=engine, start_temperature_eV=WARM_EV,
+            launches=le, setup_s=setup_s,
+            first_step_vs_win={"nn_differs": n_flip, "max_dF": f_abs,
+                                "max_F": f_start, "force_scale": f_scale},
+            win_atom_steps_per_s=main_rate, win_phase_ms_per_step=main_phases,
+            device=dev_name, nvidia_smi=smi)}))
+        engine_launches[engine] = le
+        del fse, cle, cl, tg
+        torch.cuda.empty_cache()
+    launches.update({n: engine_launches["split"][n]
+                     for n in ("eam_rho_half", "eam_force_half")})
 
     # ---- 5. bench.py's configuration as is (0.026 eV): timed only -------
     timer = CudaPhaseTimer()
@@ -956,19 +1177,34 @@ def main() -> int:
             ("eam_rho_e_mt", "eam_win.cu",
              "imd_tpu/ops/forces_pallas.py:1055"),
             ("eam_force_s_mt", "eam_win.cu",
-             "imd_tpu/ops/forces_pallas.py:1158")]
+             "imd_tpu/ops/forces_pallas.py:1158"),
+            ("eam_rho_half", "eam_half.cu",
+             "imd_tpu/ops/forces_pallas.py:641"),
+            ("eam_force_half", "eam_half.cu",
+             "imd_tpu/ops/forces_pallas.py:747"),
+            # B8 (compute_eam_forces_pallas2) runs K4/K5: their times, its
+            # launches and errors on the flagship Scene
+            ("eam_rho_e_b8", "eam_win.cu",
+             "imd_tpu/ops/forces_pallas.py:1299"),
+            ("eam_force_s_b8", "eam_win.cu",
+             "imd_tpu/ops/forces_pallas.py:1363")]
+    launches["eam_rho_e_b8"] = b8_launches["eam_rho_e"]
+    launches["eam_force_s_b8"] = b8_launches["eam_force_s"]
     out = []
     for n, src, rep in rows:
-        flops, nbytes = work[n]
+        kern = n.removesuffix("_b8")
+        flops, nbytes = work[kern]
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         out.append({
             "name": n, "route": "cuda", "source": f"imd_tpu_torch/csrc/{src}",
             "replaces": rep, "launches": launches[n],
-            "max_abs_err": errs[n], "ms": ms[n], "plain_ms": plain_ms[n],
+            "max_abs_err": errs[n], "ms": ms[kern],
+            "plain_ms": plain_ms[kern],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": None, "flops": flops, "bytes": nbytes})
+            "library_ms": None, "share": max(t_ops, t_bytes) / ms[kern],
+            "flops": flops, "bytes": nbytes})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -107,35 +107,7 @@
 // 2*dV/dr^2, so the force is F_i = -sum_j grad_ij (x_i - x_j) with
 // grad = phi'(r^2) + (dF_i + dF_j) rho'(r^2).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define NPOLY 16
-
-struct Poly {
-    float c[NPOLY];   // coefficient of t^k, zero-padded above the degree
-    float a;
-    float b0;
-};
-
-struct EamParams {
-    Poly rho_v;       // rho(r^2)
-    Poly pair_g;      // 2 dphi/dr^2
-    Poly rho_g;       // 2 drho/dr^2
-    Poly pair_v;      // phi(r^2) (K4 only)
-    float rcut2;
-    float h[9];       // box rows h[3*row + col]
-    int pbc[3];
-    int gx, gy, gz, cap;
-};
-
-__device__ __forceinline__ float poly_eval(const Poly& p, float x) {
-    const float t = fminf(fmaxf(x * p.a - p.b0, -1.0f), 1.0f);
-    float v = p.c[NPOLY - 1];
-#pragma unroll
-    for (int k = NPOLY - 2; k >= 0; --k) v = v * t + p.c[k];
-    return v;
-}
+#include "eam_common.cuh"
 
 // MT coefficient tables: rows of NPOLY coefficients, then a and b0.
 #define PROW (NPOLY + 2)
@@ -370,8 +342,6 @@ eam_force_kernel(const float* __restrict__ xi,
 static dim3 slot_cell_grid(int nc, int cap) {
     return dim3((unsigned)((nc + 127) / 128), (unsigned)cap);
 }
-
-#define STREAM(s) ((cudaStream_t)(s))
 
 extern "C" int imd_eam_rho(const void* xi, const void* alive, void* rho,
                            void* nn, const EamParams* p, int nc,

@@ -96,13 +96,14 @@ def eam_tables(ntypes: int = 1, scales=None, dtype=np.float32):
 
 def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
           temperature: float = TEMPERATURE, timer=no_timer,
-          ntypes: int = 1) -> Flagship:
+          ntypes: int = 1, engine: str = "win") -> Flagship:
     """Build the flagship run on ``device`` (host set-up in NumPy).
 
     ``temperature`` (eV) of the Maxwell start: at the configured 0.026 eV
     no atom of this lattice moves more than ~0.03 A, so the skin check
     (skin/2 = 0.25 A) never triggers a rebin; a warmed start (0.3 eV)
-    rebins every few steps."""
+    rebins every few steps.  ``engine`` is the fused step's force sweep
+    ("win", "split" or "ab"), bench.py's ``--fused``."""
     ncell = max(2, round((atoms / 4) ** (1 / 3)))
     dtype = torch.float32
     dt = np_dtype(dtype)
@@ -127,8 +128,9 @@ def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
     scene = integrate.maxwell(scene, temperature, gen)
     counters = StepCounters()
     if not ttm:
-        step, cl = make_fused_step(scene, eam_run, TIMESTEP, ntypes=ntypes,
-                                   timer=timer, counters=counters)
+        step, cl = make_fused_step(scene, eam_run, TIMESTEP, engine=engine,
+                                   ntypes=ntypes, timer=timer,
+                                   counters=counters)
         return Flagship(n_atoms=len(pos0), grid=grid, ttm=False, step=step,
                         carry=(cl,), counters=counters, scene=scene,
                         eam=eam_run)
@@ -136,8 +138,9 @@ def build(device="cuda", atoms: int = 1_000_000, ttm: bool = True,
                      fd_min_atoms=8)
     tp = ttm_mod.make_params(tcfg, box, CUTOFF)
     step, cl = make_fused_ttm_step(scene, eam_run, TIMESTEP, tp,
-                                   FEGEos(), LASER, ntypes=ntypes,
-                                   timer=timer, counters=counters)
+                                   FEGEos(), LASER, engine=engine,
+                                   ntypes=ntypes, timer=timer,
+                                   counters=counters)
     fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
                      device=device)
     carry = (cl, ttm_mod.make_grid(tp, dtype, device), fdi, 0)

@@ -32,7 +32,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("eam_win.cu", "rebin_compact.cu")
+SOURCES = ("eam_win.cu", "eam_half.cu", "rebin_compact.cu")
+HEADERS = ("eam_common.cuh",)
 # -fmad=false: no multiply-add contraction, so the kernels round like
 # torch's eager mul + add (see eam_win.cu, "Rounding")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,13 +43,16 @@ NPOLY = 16            # padded Horner length baked per polynomial (deg <= 15)
 MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (the stencil family),
                       # candidates (K3)
 MAX_NT = 4            # species the multi-type kernels take (eam_win.cu)
+HALF_MAX_CAP = 128    # capacity the half-stencil kernels take: one cell's
+                      # [cap][cap] scratch in shared memory (eam_half.cu)
 # order of the tables in the multi-type coefficient buffer
 # [4][ntypes^2][NPOLY + 2] (eam_win.cu: T_RHO_V ...)
 MT_TABLES = ("rho_v", "pair_v", "pair_g", "rho_g")
 
 LAUNCHES = {"eam_rho": 0, "eam_force": 0, "compact": 0, "eam_rho_e": 0,
             "eam_force_s": 0, "eam_rho_mt": 0, "eam_force_mt": 0,
-            "eam_rho_e_mt": 0, "eam_force_s_mt": 0}
+            "eam_rho_e_mt": 0, "eam_force_s_mt": 0, "eam_rho_half": 0,
+            "eam_force_half": 0}
 
 
 def reset_launches() -> None:
@@ -92,7 +96,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -163,10 +167,17 @@ def lib() -> ctypes.CDLL:
                                           vp]
         cdll.imd_eam_force_s_mt.argtypes = [vp, vp, vp, ci, vp, vp, vp, pp,
                                             ci, vp]
+        # half stencil: xi, nbr, [dF, dFn,] out_i, out_j, [count, nr2,]
+        # params, nc, stream
+        cdll.imd_eam_rho_half.argtypes = [vp, vp, vp, vp, ci, ctypes.c_float,
+                                          pp, ci, vp]
+        cdll.imd_eam_force_half.argtypes = [vp, vp, vp, vp, vp, vp, pp, ci,
+                                            vp]
         for fn in (cdll.imd_eam_rho, cdll.imd_eam_rho_e, cdll.imd_eam_force,
                    cdll.imd_eam_force_s, cdll.imd_compact,
                    cdll.imd_eam_rho_mt, cdll.imd_eam_rho_e_mt,
-                   cdll.imd_eam_force_mt, cdll.imd_eam_force_s_mt):
+                   cdll.imd_eam_force_mt, cdll.imd_eam_force_s_mt,
+                   cdll.imd_eam_rho_half, cdll.imd_eam_force_half):
             fn.restype = ci
         _lib = cdll
     return _lib

@@ -8,18 +8,27 @@ The state stays cells-last across steps,
     CLState.mass  [cap, NC]
     CLState.alive [cap, NC] bool
 
-so the force kernels read it as is.  A step: the EAM R and F passes (K1,
-K2; with ``ntypes`` 2 to 4 the alloy pair K6, K7, which reads ``typ``),
-then for the TTM step ``calc_ttm`` and the xi-coupled leapfrog
-(move_atoms_ttm, imd_integrate.c:581), then the skin check, and on a
-trigger the sort-free migration rebin (K3 inside).  The JAX package's
-``lax.cond(need, rebin)`` is one host sync per step here, and calc_ttm adds
-one for its substep count; both are counted in ``StepCounters``.
+so the force kernels read it as is.  A step: the EAM forces, then for the
+TTM step ``calc_ttm`` and the xi-coupled leapfrog (move_atoms_ttm,
+imd_integrate.c:581), then the skin check, and on a trigger the sort-free
+migration rebin (K3 inside).  The JAX package's ``lax.cond(need, rebin)``
+is one host sync per step here, and calc_ttm adds one for its substep
+count; both are counted in ``StepCounters``.
 
-Only the windowed engine on one device is ported, for up to 4 species:
-the ``engine``, ``mesh``, ``nrb_state``, TMM, VLAT, ELECPRESS, COLRAD and
-FDTD arguments raise NotImplementedError unless left at their defaults,
-and so does ``ntypes`` > 4 (not fused in imd_tpu either).
+``engine`` picks the force sweep, as in imd_tpu:
+
+- ``"win"`` (the default): the R/F split with the windowed full stencil,
+  K1 and K2 (ops/forces_win.py);
+- ``"split"``: the R/F split over the 13 rolled half-stencil views built
+  each step, K10 and K11 (ops/forces_pallas.py ``eam_kernels_cl_split``);
+- ``"ab"``: the observables pair K4 and K5 (``eam_kernels_cl``), whose
+  energies and stress the step does not read.
+
+With ``ntypes`` 2 to 4 every engine runs the alloy pair K6, K7, which
+reads ``typ`` (imd_tpu does the same).  One device only: ``mesh``,
+``nrb_state``, TMM, VLAT, ELECPRESS, COLRAD and FDTD raise
+NotImplementedError unless left at their defaults, and so does ``ntypes``
+> 4 (not fused in imd_tpu either).
 """
 
 from __future__ import annotations
@@ -86,38 +95,65 @@ def cl_to_scene(cl: CLState, template: Scene) -> Scene:
         overflow=cl.overflow)
 
 
+ENGINES = ("win", "split", "ab")
+
+
 def _only_ported(**set_args):
     """Raise for each argument of the JAX API that this slice does not
     port; ``set_args`` maps its name to True where the caller set it."""
     for name, is_set in set_args.items():
         if is_set:
             raise NotImplementedError(
-                f"{name} is not ported (only the windowed engine on one "
-                "device)")
+                f"{name} is not ported (one device only)")
 
 
-def _make_forces(eam_run, grid, ntypes: int, timer):
-    """forces(cl, count_neighbors) -> (F, nneigh): K1/K2 for one species,
-    K6/K7 with the types for 2..MAX_NT (imd_tpu fused_step.py:143-155)."""
+def _make_forces(eam_run, template: Scene, ntypes: int, timer,
+                 engine: str = "win"):
+    """forces(cl, count_neighbors) -> (F, nneigh) of ``engine`` for one
+    species; K6/K7 with the types for 2..MAX_NT whatever the engine
+    (imd_tpu fused_step.py:143-182)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}: one of {ENGINES}")
     if ntypes > MAX_NT:
         raise NotImplementedError(
             f"ntypes {ntypes} is not ported: the fused step takes up to "
             f"{MAX_NT} species, more run imd_tpu's general step (ROADMAP "
             "A9)")
+    grid = template.grid
     if ntypes > 1:
         check_mt_tables(eam_run, ntypes)
 
-    def forces(cl, count_neighbors):
-        if ntypes > 1:
+        def forces(cl, count_neighbors):
             F, _, nn = eam_kernels_win_split_mt(
                 cl.xi, cl.typ, cl.alive, eam_run, grid, ntypes,
                 count_neighbors=count_neighbors, timer=timer)
-        else:
+            return F, nn
+        return forces
+    if engine == "win":
+        def forces(cl, count_neighbors):
             F, _, nn = eam_kernels_win_split(
                 cl.xi, cl.alive, eam_run, grid,
                 count_neighbors=count_neighbors, timer=timer)
-        return F, nn
+            return F, nn
+        return forces
+    # imported here: forces_pallas imports this module
+    from imd_tpu_torch.ops import forces_pallas as fp
+    if engine == "ab":
+        def forces(cl, count_neighbors):
+            F, _, _, nn, _, _ = fp.eam_kernels_cl(cl.xi, cl.alive, eam_run,
+                                                  grid, timer=timer)
+            return F, nn if count_neighbors else torch.zeros_like(nn)
+        return forces
+    views = fp.make_neighbor_views(grid, template.pos.dtype,
+                                   template.pos.device)
 
+    def forces(cl, count_neighbors):
+        with timer("views"):
+            nbr = views(cl.xi)
+        F, _, nn = fp.eam_kernels_cl_split(
+            cl.xi, nbr, cl.alive, eam_run, grid,
+            count_neighbors=count_neighbors, timer=timer)
+        return F, nn
     return forces
 
 
@@ -141,13 +177,12 @@ def make_fused_step(template: Scene, eam_run, timestep: float,
     """Returns (step, cl0): step(cl) -> (cl', nneigh [cap, NC], zero: the
     pure-MD step counts no neighbours).
 
-    EAM forces (K1/K2, or K6/K7 for ``ntypes`` 2..4) + leapfrog + skin
-    check with a migration rebin on trigger.  ``eam_run`` must be
-    fastpoly."""
-    _only_ported(engine=engine != "win", mesh=mesh is not None,
-                 nrb_state=nrb_state is not None)
+    EAM forces (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4)
+    + leapfrog + skin check with a migration rebin on trigger.
+    ``eam_run`` must be fastpoly."""
+    _only_ported(mesh=mesh is not None, nrb_state=nrb_state is not None)
     grid = template.grid
-    forces = _make_forces(eam_run, grid, ntypes, timer)
+    forces = _make_forces(eam_run, template, ntypes, timer, engine)
     dt = float(timestep)
     skin2 = (0.5 * grid.skin) ** 2
     rebin = make_rebin_cl(grid)
@@ -181,17 +216,16 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
     Returns (step, cl0): step(cl, tgrid, fdi, k) -> (cl', tgrid', fdi',
     k+1) with ``fdi`` the flat [cap*NC] int32 stored FD index (-1 = no
     history) and ``k`` the host step number.  EAM forces with neighbour
-    counts (K1/K2, or K6/K7 for ``ntypes`` 2..4), calc_ttm on flat
-    component views of the cells-last state, xi-coupled leapfrog
-    p += dt (F + xi m (v - vcom)), skin check, and on trigger the
+    counts (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4),
+    calc_ttm on flat component views of the cells-last state, xi-coupled
+    leapfrog p += dt (F + xi m (v - vcom)), skin check, and on trigger the
     migration rebin carrying fdi with its atom."""
-    _only_ported(engine=engine != "win", mesh=mesh is not None,
-                 nrb_state=nrb_state is not None,
+    _only_ported(mesh=mesh is not None, nrb_state=nrb_state is not None,
                  tmm_params=tmm_params is not None, vlat=vlat is not None,
                  elecpress=bool(elecpress), colrad=colrad is not None,
                  fdtd_params=fdtd_params is not None)
     grid = template.grid
-    forces = _make_forces(eam_run, grid, ntypes, timer)
+    forces = _make_forces(eam_run, template, ntypes, timer, engine)
     dtype = template.pos.dtype
     dt = float(timestep)
     skin2 = (0.5 * grid.skin) ** 2

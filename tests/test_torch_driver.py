@@ -34,6 +34,7 @@ from imd_tpu.config import SimConfig as JSimConfig
 from imd_tpu.io.chkpt import ChkptData, read_chkpt, write_chkpt
 from imd_tpu.models import potential as j_pot
 from imd_tpu.models.potential import analytic_eam, write_pot_table
+from imd_tpu.ops import forces_fast as j_ff
 from imd_tpu.ops import geometry as j_geom
 from imd_tpu.scene import grow_capacity as j_grow_capacity
 from imd_tpu.scene import make_scene as j_make_scene
@@ -48,6 +49,7 @@ from imd_tpu_torch.config import SimConfig as TSimConfig
 from imd_tpu_torch.config import parse_param_text
 from imd_tpu_torch.io import chkpt as t_chkpt
 from imd_tpu_torch.models import potential as t_pot
+from imd_tpu_torch.ops import forces_pallas as t_fp
 from imd_tpu_torch.ops import geometry as t_geom
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -243,6 +245,47 @@ def test_two_phase_file_continues_the_run(rundir, nve_straight):
     _same_rows(np.loadtxt(rundir / "p.eng"), nve_straight)
     for name in ("00002", "-final"):
         _same_checkpoint(rundir, name, want_base="s", got_base="p")
+
+
+def test_capacity_over_32_deviates_from_imd_tpu_xla_engine():
+    """ROADMAP C4, recorded: above capacity 32 imd_tpu's CLI leaves its
+    fused Pallas loop for the XLA engine on degree-24 Chebyshev fits
+    (imd_tpu/simulation.py:394-398, 429-439); the port keeps the fused
+    loop on the degree-12 fastpoly.  One capacity-40 state of the driver
+    tests' film (fcc 5x4x4, jittered 0.1 A from a seed, open x with 1 A
+    of vacuum, the analytic EAM tables in float64), both ways: the port's
+    K4/K5 plain versions against imd_tpu's compute_eam_forces_fast (run
+    eagerly: jitted it compiles for ~30 s here).  Measured: max|dF| /
+    max|F| = 0.7530 (max|F| 13.77 eV/A), total epot -2565.974 vs
+    -2540.884 eV, -0.0784 eV per atom.  The Chebyshev fit meets the
+    all-pairs oracle on the raw tables to 2.5e-5 of max|F|: the gap is
+    the degree-12 fit's (the same fit imd_tpu's Pallas engine runs below
+    capacity 32; ROADMAP C2).  Bounds: 0.8 and 0.1 eV per atom."""
+    torch.set_num_threads(1)
+    pos, _, diag = fcc((5, 4, 4), 4.05)
+    pos = pos + np.random.default_rng(3).normal(scale=0.1, size=pos.shape)
+    box = j_geom.Box.create([diag[0] + 1.0, 0, 0], [0, diag[1], 0],
+                            [0, 0, diag[2]], pbc=(0, 1, 1),
+                            dtype=jnp.float64)
+    grid = j_geom.with_capacity(j_geom.choose_grid(
+        box, 5.0, skin=0.5, n_atoms=len(pos)), 40)
+    jscene = j_make_scene(grid, pos + 0.5, mass=np.full(len(pos), 26.9815),
+                          dtype=jnp.float64)
+    assert int(jscene.overflow) == 0 and grid.capacity == 40
+    tables = analytic_eam(r_cut=5.0, r0=4.05 / math.sqrt(2.0), E_c=3.39,
+                          dtype=jnp.float64)
+    want = j_ff.compute_eam_forces_fast(
+        jscene, j_pot.eam_to_chebyshev(tables, deg=24), 1)
+    got = t_fp.compute_eam_forces_pallas(
+        convert.from_scene(jscene, device="cpu"),
+        t_pot.eam_to_fastpoly(convert.from_eam(tables)))
+    m = np.asarray(jscene.mask)
+    F_want = np.asarray(want.force)[m]
+    dF = np.abs(got.force.numpy()[m] - F_want).max() / np.abs(F_want).max()
+    gap = (got.epot.numpy()[m].sum() - np.asarray(want.epot)[m].sum()) \
+        / m.sum()
+    assert dF < 0.8, dF
+    assert abs(gap) < 0.1, gap
 
 
 @pytest.fixture(scope="module")

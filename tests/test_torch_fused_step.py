@@ -5,7 +5,11 @@ Both packages start from the same Scene (binned by imd_tpu, carried
 across by imd_tpu_torch.convert) with the same NumPy momenta; the JAX side
 runs its Pallas kernels in interpret mode and its rebin through the XLA
 scatter, as its own tests do.  Atoms are compared by id (slot order inside
-a cell is free after a rebin), the TTM grid per FD cell.
+a cell is free after a rebin), the TTM grid per FD cell.  The rolled-view
+engines: ``engine="split"`` against imd_tpu's split step; ``"ab"`` and the
+TTM step under both against the port's own ``"win"`` engine (no JAX call,
+1e-10: the engines sum in other orders); two species under ``"split"``
+run the alloy kernels, bit for bit as under ``"win"``.
 """
 
 import math
@@ -24,7 +28,8 @@ from imd_tpu.ops import fused_step as j_fused
 from imd_tpu.ops import geometry as j_geom
 from imd_tpu.scene import make_scene as j_make_scene
 from imd_tpu.utils.generate import fcc
-from imd_tpu_torch import convert
+from imd_tpu_torch import convert, flagship
+from imd_tpu_torch.models import potential as t_pot
 from imd_tpu_torch.models import ttm as t_ttm
 from imd_tpu_torch.models.eos import FEGEos
 from imd_tpu_torch.ops import fused_step as t_fused
@@ -144,12 +149,96 @@ def test_fused_md_step_matches_jax(setup):
     _assert_same_atoms(jcl, tcl)
 
 
+def test_fused_md_step_split_matches_jax(setup):
+    """engine="split" (K10/K11's plain versions over rolled views) against
+    imd_tpu's split step (eam_r_pass/eam_f_pass in interpret mode)."""
+    jscene, jeam, tscene, team = setup
+    jstep, jcl = j_fused.make_fused_step(jscene, jeam, DT, engine="split")
+    jstep = jax.jit(jstep)
+    counters = StepCounters()
+    tstep, tcl = t_fused.make_fused_step(tscene, team, DT, engine="split",
+                                         counters=counters)
+    for _ in range(NSTEPS):
+        jcl, _ = jstep(jcl)
+        tcl, _ = tstep(tcl)
+    assert counters.rebins >= 1, "the run must exercise an in-loop rebin"
+    _assert_same_atoms(jcl, tcl)
+
+
+TTM_CFG = TTMConfig(enabled=True, fd_nx=4, fd_min_atoms=8)
+
+
+def _run_port(tscene, team, engine, ttm, ntypes=1, nsteps=NSTEPS):
+    """``nsteps`` of the port's fused step; returns (final carry,
+    counters)."""
+    counters = StepCounters()
+    if not ttm:
+        step, cl = t_fused.make_fused_step(tscene, team, DT, engine=engine,
+                                           ntypes=ntypes, counters=counters)
+        for _ in range(nsteps):
+            cl, _ = step(cl)
+        return (cl,), counters
+    tp = t_ttm.make_params(TTM_CFG, tscene.grid.box, 5.0)
+    step, cl = t_fused.make_fused_ttm_step(tscene, team, DT, tp, FEGEos(),
+                                           LASER, engine=engine,
+                                           ntypes=ntypes, counters=counters)
+    carry = (cl, t_ttm.make_grid(tp, torch.float64, device="cpu"),
+             torch.full((cl.mass.numel(),), -1, dtype=torch.int32), 0)
+    for _ in range(nsteps):
+        carry = step(*carry)
+    return carry, counters
+
+
+@pytest.fixture(scope="module")
+def win_runs(setup):
+    """The port's "win" runs, pure MD and TTM-coupled, by ``ttm``."""
+    _, _, tscene, team = setup
+    return {ttm: _run_port(tscene, team, "win", ttm) for ttm in (False, True)}
+
+
+@pytest.mark.parametrize("ttm,engine", [(False, "ab"), (True, "split"),
+                                        (True, "ab")])
+def test_engine_matches_the_windowed_engine(setup, win_runs, ttm, engine):
+    """The rolled-view engines move the same atoms as "win" to 1e-10, with
+    the same rebins, and for the TTM step the same electron grid."""
+    _, _, tscene, team = setup
+    want, c_want = win_runs[ttm]
+    got, c_got = _run_port(tscene, team, engine, ttm)
+    assert c_got.rebins == c_want.rebins >= 1
+    assert int(got[0].overflow) == int(want[0].overflow) == 0
+    for f in ("xi", "mom"):
+        ids_a, va = _by_id(want[0].ids.numpy(),
+                           np.moveaxis(getattr(want[0], f).numpy(), 1, -1))
+        ids_b, vb = _by_id(got[0].ids.numpy(),
+                           np.moveaxis(getattr(got[0], f).numpy(), 1, -1))
+        np.testing.assert_array_equal(ids_a, ids_b)
+        np.testing.assert_allclose(vb, va, rtol=0, atol=1e-10, err_msg=f)
+    if ttm:
+        np.testing.assert_allclose(got[1].temp.numpy(),
+                                   want[1].temp.numpy(), rtol=1e-10)
+        assert torch.equal(got[1].natoms, want[1].natoms)
+
+
+def test_two_species_split_runs_the_alloy_kernels(setup):
+    """ntypes=2 takes K6/K7 whatever the engine: "split" equals "win"."""
+    _, _, tscene, _ = setup
+    typ = torch.where(tscene.mask, tscene.id % 2, -1).to(torch.int32)
+    scene2 = tscene.replace(type=typ)
+    eam2 = t_pot.eam_to_fastpoly(flagship.eam_tables(2, dtype=np.float64),
+                                 deg=12)
+    want, _ = _run_port(scene2, eam2, "win", True, ntypes=2, nsteps=3)
+    got, _ = _run_port(scene2, eam2, "split", True, ntypes=2, nsteps=3)
+    for f in ("xi", "mom", "typ", "ids"):
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert torch.equal(got[1].temp, want[1].temp)
+
+
 def test_unported_arguments_raise(setup):
     _, _, tscene, team = setup
     with pytest.raises(NotImplementedError, match="mesh"):
         t_fused.make_fused_step(tscene, team, DT, mesh=object())
-    with pytest.raises(NotImplementedError, match="engine"):
-        t_fused.make_fused_step(tscene, team, DT, engine="split")
+    with pytest.raises(ValueError, match="engine"):
+        t_fused.make_fused_step(tscene, team, DT, engine="pallas2")
     with pytest.raises(NotImplementedError, match="tmm_params"):
         t_fused.make_fused_ttm_step(tscene, team, DT, None, FEGEos(), LASER,
                                     tmm_params=object())
