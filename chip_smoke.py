@@ -72,8 +72,25 @@ step, K1/K2 never) and ``engine="ab"`` (K4/K5 once per step), after
 holding each engine's forces on the start state against the ``"win"``
 engine's.
 
+Phase 3 also holds B6's K12 pair_half (csrc/eam_half.cu), assembled,
+against its plain version (no cutoff flips; e to 1e-5, F and the stress
+sums to 1e-4 of their maxima; the same bits twice) on phase 7's state with
+0.1 A of jitter (grid 42^3, cap 16) and on the (3,2,2) grid with an open x
+face, and B6's masked result (``compute_pair_forces_pallas``) against the
+all-pairs float64 oracle on the small input.  Phase 7 drives the general
+pair step through the driver: ``python -m imd_tpu_torch`` in process on
+examples/melt_quench's LJ (eps 0.35, sigma 2.62, r_cut 5.0) on the
+flagship's fcc box of 63^3 cells (1,000,188 atoms), ensemble nve from 0.2
+eV, 3 warm-up steps and 3 timed blocks of 20, launch counters set to 0
+just before: K12 must launch once per step and no other kernel, the skin
+check must have rebinned, no atom may be lost, the total energy per atom
+over the timed .eng lines must spread less than twice the float64 run of
+the same file on 16^3 cells (CPU, plain versions), and K12 must match its
+plain version on the last state.
+
 Prints one JSON line each for the four main paths (one and two species,
-"split", "ab"), the bench configuration and the two driver runs, one
+"split", "ab"), the bench configuration, the two driver runs and the LJ
+driver run, one
 {"kernels": [...]} line (with each kernel's bound: the larger of its FLOPs
 over the float32 peak and its bytes over the memory rate, counted from
 this run's inputs, and its share, bound / ms; B8's rows carry K4/K5's
@@ -118,6 +135,10 @@ FLOPS_PER_PAIR = {
     # the rolled-view split does the same work per pair, each pair once
     "eam_rho_half": _DIST + _HV + 2 + 2,
     "eam_force_half": _DIST + 2 * _HG + 3 + 6 + 3,
+    # B6's K12: phi and its derivative, g d (3), the i and j force sums
+    # with the j side's differences (3 + 6), six stress products and sums,
+    # the two energy sums
+    "pair_half": _DIST + _HV + _HG + 3 + 3 + 6 + 12 + 2,
 }
 # a pair of unlike types reads two different density columns (source j at
 # host i, source i at host j): one more density Horner than a like pair
@@ -321,6 +342,202 @@ def run_driver(dev_name: str, smi: str, ntypes: int = 1):
     return report, sim, state
 
 
+LJ_STEPS = 63
+LJ_CELLS = 63       # fcc cells per axis: 4 * 63^3 = 1,000,188 atoms
+# examples/melt_quench's LJ physics (IMD's LJ, eps 0.35 eV, sigma 2.62 A,
+# cut 5.0 A, Al masses, 1 fs steps, the melt's 0.2 eV start) on the
+# flagship's fcc box of {cells}^3 cells under ensemble nve.  startstep 17
+# makes the first block the 3 warm-up steps (blocks end on multiples of
+# eng_int), then 3 timed blocks of 20.  The skin is 0.05 A: from 0.2 eV the
+# degree-12 LJ fit's stiff wells keep the atoms within a few hundredths of
+# an angstrom of their sites, so the default 0.4 A skin (a 0.2 A trigger)
+# never rebins; a 0.025 A trigger does, and the grid stays imd_tpu's (42^3,
+# capacity 16).
+LJ_PARAMS = """coordname _fcc
+box_param {cells} {cells} {cells}
+box_unit 4.05
+ntypes 1
+masses 26.9815
+outfiles lj
+lj_epsilon 0.35
+lj_sigma 2.62
+r_cut 5.0
+timestep 0.1
+ensemble nve
+starttemp 0.2
+nbl_margin 0.05
+startstep 17
+maxsteps 80
+eng_int 20
+checkpt_int 80
+"""
+# the float64 reference of the energy check: the same file on 16^3 cells
+LJ_REF_CELLS = 16
+
+
+def lj_energy_spread(eng):
+    """Largest minus smallest total energy per atom (epot + 3/2 T) over the
+    .eng lines of the three timed blocks (the first line ends the warm-up,
+    inside the leapfrog's start-up transient)."""
+    etot = eng[1:, 1] + 1.5 * eng[1:, 2]
+    return float(etot.max() - etot.min())
+
+
+def run_lj(args, cells: int, timer=None):
+    """``python -m imd_tpu_torch -p`` in process on LJ_PARAMS; returns the
+    run's Simulation, last state and .eng."""
+    import numpy as np
+
+    from imd_tpu_torch import __main__ as cli
+    with tempfile.TemporaryDirectory(prefix="imd_lj_") as tmp:
+        par = Path(tmp) / "lj.imd"
+        par.write_text(LJ_PARAMS.format(cells=cells))
+        runs = []
+        rc = cli.main(["-p", str(par), *args], timer=timer,
+                      on_phase=lambda sim, st: runs.append((sim, st)))
+        check(rc == 0 and len(runs) == 1, "LJ driver run")
+        for name in ("lj.00001.chkpt", "lj.00001.itr", "lj-final.chkpt"):
+            check((Path(tmp) / name).stat().st_size > 0, f"{name} written")
+        eng = np.loadtxt(Path(tmp) / "lj.eng", ndmin=2)
+    return runs[0][0], runs[0][1], eng
+
+
+def run_lj_driver(dev_name: str, smi: str):
+    """Phase 7: the general pair step through the driver at full width
+    (63^3 fcc cells, 1,000,188 atoms), counters and launch counts set to 0
+    just before.  K12 must launch once per step, the skin check must have
+    rebinned, no atom may be lost, the energy spread must stay within
+    twice the float64 reference's, and K12 must match its plain version on
+    the last state.  Prints the ``driver_lj`` line and returns it."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.ops import forces_pallas as b4
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    timer = CudaPhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sim, state, eng = run_lj([], LJ_CELLS, timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    phases = timer.totals_ms()
+    n_atoms = 4 * LJ_CELLS ** 3
+    # one launch a step (a block retried after a capacity growth runs its
+    # steps again: counters.steps counts every step run)
+    steps_run = sim.counters.steps
+    check(steps_run >= LJ_STEPS and launches["pair_half"] == steps_run,
+          f"K12 launched {launches['pair_half']} times in {steps_run} steps")
+    others = {k: v for k, v in launches.items() if k != "pair_half" and v}
+    check(not others, f"other kernels launched on the pair path: {others}")
+    check(sim.nbl_count >= 1,
+          f"the pair path must rebin (skin check): {sim.nbl_count} rebins")
+    live = state.scene.mask
+    ids = torch.sort(state.scene.id[live]).values.cpu()
+    check(len(ids) == n_atoms and torch.equal(
+        ids, torch.arange(n_atoms, dtype=ids.dtype)) and int(
+        state.scene.overflow) == 0, "LJ driver: no atom lost")
+    blocks = sim.block_seconds
+    check([b for b, _ in blocks] == [3, 20, 20, 20],
+          f"LJ driver blocks {[b for b, _ in blocks]}")
+    walls = [w for _, w in blocks[1:]]
+    med = statistics.median(walls)
+    check(eng.shape == (4, 5) and bool(np.isfinite(eng).all()),
+          f"LJ .eng shape {eng.shape}, finite")
+    # the energy check: leapfrog at dt = 0.1 on the degree-12 fit (stiffer
+    # than the table: 5x its force at the nearest neighbour) makes the total
+    # energy fluctuate by ~1e-2 eV per atom; float32 rounding adds ~1e-6
+    # (positions of ~250 A round to 1.5e-5 A, times forces of ~5 eV/A, a
+    # random walk over 1M atoms and 60 steps).  The bound is twice the
+    # spread of the same file in float64 on 16^3 cells (the CPU, plain
+    # versions), whose synchronized start oscillates as coherently and
+    # whose random part is larger at 64x fewer atoms, plus 1e-5.
+    t1 = time.perf_counter()
+    _, _, eng_ref = run_lj(["--device", "cpu", "--dtype", "float64"],
+                           LJ_REF_CELLS)
+    ref_s = time.perf_counter() - t1
+    spread = lj_energy_spread(eng)
+    ref_spread = lj_energy_spread(eng_ref)
+    bound = 2.0 * ref_spread + 1e-5
+    print(f"LJ driver: total energy per atom over the timed .eng lines "
+          f"spreads {spread:.3e} eV (float64 reference on "
+          f"{4 * LJ_REF_CELLS ** 3} atoms {ref_spread:.3e}; bound "
+          f"{bound:.3e})")
+    check(spread <= bound, "LJ driver energy spread")
+    # K12 against its plain version on the last state (not counted)
+    xi, nbr, mask = b4.prep_neighbors(state.scene)
+    out_k = b4.pair_half(xi, nbr, sim.pair_run, sim.grid, True)
+    out_p = b4.pair_half_plain(xi, nbr, sim.pair_run, sim.grid, True)
+    last = pair_errors(out_k, out_p, mask, sim.grid.dims)
+    print(f"K12 on the LJ driver's last state: {last}")
+    check(last["flips"] == 0 and last["F"] <= 1e-4 and last["e"] <= 1e-5
+          and last["S"] <= 1e-4 and last["presstens"] <= 1e-4,
+          "K12 against its plain version on the LJ driver's last state")
+    report = {
+        "config": "examples/melt_quench LJ (eps 0.35, sigma 2.62, r_cut "
+                  "5.0, fastpoly-12 fit) on fcc 63^3 Al, 1,000,188 atoms, "
+                  "ensemble nve, 0.2 eV start, skin 0.05, float32, general "
+                  "step (B6: 13 views + K12)",
+        "atoms": n_atoms, "grid": list(sim.grid.dims),
+        "capacity": sim.grid.capacity, "steps": LJ_STEPS,
+        "setup_s": sim.setup_seconds, "wall_s": wall,
+        "block_steps_s": blocks,
+        "atom_steps_per_s": n_atoms * 20 / med,
+        "spread_pct": 100.0 * (max(walls) - min(walls)) / med,
+        "phase_ms_per_step": {k: v / steps_run for k, v in phases.items()},
+        "phase_calls": timer.counts(),
+        "step_counts": dataclasses.asdict(sim.counters),
+        "skin_rebins": sim.nbl_count,
+        "rebins_per_step": sim.counters.rebins / steps_run,
+        "host_syncs_per_step": sim.counters.host_syncs / steps_run,
+        "launches": launches, "max_memory_allocated_bytes": peak,
+        "eng": eng.tolist(), "energy_spread_eV": spread,
+        "float64_reference_spread_eV": ref_spread,
+        "float64_reference_s": ref_s, "energy_bound_eV": bound,
+        "k12_vs_plain_last_state": last,
+        "device": dev_name, "nvidia_smi": smi}
+    print(json.dumps({"driver_lj": report}))
+    return report
+
+
+def pair_errors(out_k, out_p, mask, dims) -> dict:
+    """K12's outputs against its plain version's, assembled: cutoff flips
+    (live slots whose count differs), max |d| / max over live slots of F
+    and e, of the per-slot stress sums S, the pressure tensor's largest
+    relative difference, and the max abs error over live slots."""
+    import torch
+
+    from imd_tpu_torch.ops import forces_pallas as b4
+
+    def assembled(out):
+        acc_i, acc_s, acc_j = out
+        v = [b4._assemble(dims, acc_i[n], acc_j[n])
+             for n in range(len(acc_i))]
+        return torch.stack(v[:3], 1), v[3], v[4], acc_s
+
+    F_k, e_k, nn_k, S_k = assembled(out_k)
+    F_p, e_p, nn_p, S_p = assembled(out_p)
+    agree = mask & (nn_k == nn_p)
+    dF = (F_k - F_p).abs().amax(1)
+    de = (e_k - e_p).abs()
+    dS = (S_k - S_p).abs().amax(0)
+    pt_k = S_k.double().sum(dim=(1, 2))
+    pt_p = S_p.double().sum(dim=(1, 2))
+    return {
+        "flips": int((mask & ~agree).sum()),
+        "F": float(dF[agree].max() / F_p.abs().amax(1)[mask].max()),
+        "e": float(de[agree].max() / e_p[mask].abs().max()),
+        "S": float(dS[agree].max() / S_p.abs().amax(0)[mask].max()),
+        "presstens": float(((pt_k - pt_p).abs() / pt_p.abs().max()).max()),
+        "max_abs": max(float(dF[mask].max()), float(de[mask].max()),
+                       float(dS[mask].max()))}
+
+
 def compare_eng(alloy, single, n_atoms: int):
     """The two-species driver run's .eng against the one-species run's, at
     the same steps: 1e-5 relative per column (of the column's largest
@@ -364,14 +581,16 @@ def main() -> int:
     from imd_tpu_torch.ops import forces_pallas as b4
     from imd_tpu_torch.ops import forces_win as win
     from imd_tpu_torch.ops import fused_step, rebin_cl
-    from imd_tpu_torch.ops.forces_fast import _roll_cells
+    from imd_tpu_torch.ops.forces_fast import _roll_cells, _to_cl
     from imd_tpu_torch.ops.fused_step import scene_to_cl
     from imd_tpu_torch.ops.geometry import (Box, choose_grid,
                                             measured_capacity, with_capacity)
     from imd_tpu_torch.models.potential import (EAMPotential,
                                                 eam_to_fastpoly, tile_columns)
+    from imd_tpu_torch.config import SimConfig, parse_param_text
     from imd_tpu_torch.phases import CudaPhaseTimer, no_timer
     from imd_tpu_torch.scene import make_scene
+    from imd_tpu_torch.simulation import Simulation
 
     smi = nvidia_smi_line()
     dev_name = torch.cuda.get_device_name(0)
@@ -778,6 +997,57 @@ def main() -> int:
     nbr_main, dF_half, dFn_main, f_scale = check_half(xi, alive, eam, grid,
                                                       "main path")
 
+    # ---- B6: K12 pair_half on the LJ main path's shapes ----------------
+    # phase 7's set-up (the LJ fit, grid 42^3 cap 16 at 1,000,188 atoms);
+    # the positions jittered by 0.1 A, whose forces set the scale
+    lj = Simulation(SimConfig.from_params(parse_param_text(
+        LJ_PARAMS.format(cells=LJ_CELLS))), device="cuda")
+    lj_pot, lj_grid = lj.pair_run, lj.grid
+    c_lj = lj_pot.host[0][0]
+    r2_nn = flagship.ALAT ** 2 / 2.0          # the nearest neighbour
+    t_v, t_g = lj.pair.interp(0, np.array([r2_nn]))
+    f_v, f_g = lj_pot.at_host_precision().interp(
+        0, torch.tensor([r2_nn], dtype=torch.float64))
+    print(f"LJ fit (to_fastpoly, vcap 50): window r^2 in "
+          f"[{lj_pot.host[0][1]:.4f}, {lj_pot.host[0][2]:.4f}], sum |c_k| = "
+          f"{sum(abs(v) for v in c_lj):.1f}, phi_fit(rc^2) = {sum(c_lj):.4f} "
+          f"eV, sum |c_k'| = "
+          f"{sum(abs(v) for v in win._deriv_coefs(lj_pot.host[0])):.1f}; at "
+          f"the nearest neighbour phi fit {float(f_v[0]):.4f} table "
+          f"{float(t_v[0]):.4f} eV, 2 dphi/dr^2 fit {float(f_g[0]):.4f} "
+          f"table {float(t_g[0]):.4f}; grid {lj_grid.dims} cap "
+          f"{lj_grid.capacity}")
+    xi_lj0, _, alive_lj = b4.prep_neighbors(lj.scene)
+    del lj
+    xi_lj = torch.where(alive_lj[:, None, :], xi_lj0 + torch.empty_like(
+        xi_lj0).uniform_(-0.1, 0.1, generator=gen), xi_lj0).contiguous()
+
+    def check_pair(xi, alive, pot, grid, label):
+        """K12 (assembled) against its plain version, with the count, the
+        energy and the stress on: no cutoff flips (the kernel rounds as
+        torch does, -fmad=false), e to 1e-5, F and the stress sums to 1e-4
+        of their maxima (K10/K11's tolerances), the pressure tensor to
+        1e-4; two launches give the same bits.  Returns (nbr, pairs)."""
+        nbr = b4.make_neighbor_views(grid, xi.dtype, xi.device)(xi)
+        out_k = b4.pair_half(xi, nbr, pot, grid, True)
+        again = b4.pair_half(xi, nbr, pot, grid, True)
+        check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+              f"K12 gives the same bits twice ({label})")
+        out_p = b4.pair_half_plain(xi, nbr, pot, grid, True)
+        e = pair_errors(out_k, out_p, alive, grid.dims)
+        print(f"K12 pair_half ({label}) vs plain: {e}")
+        check(e["flips"] == 0 and e["F"] <= 1e-4 and e["e"] <= 1e-5
+              and e["S"] <= 1e-4 and e["presstens"] <= 1e-4,
+              f"K12 against its plain version ({label})")
+        errs["pair_half"] = max(errs.get("pair_half", 0.0), e["max_abs"])
+        nn = b4._assemble(grid.dims, out_p[0][4], out_p[2][4])
+        return nbr, float(nn[alive].double().sum()) / 2.0
+
+    check_pair(tcl_o.xi, tcl_o.alive, lj_pot, tgrid_o,
+               tlabel + ", open x, LJ")
+    nbr_lj, pairs_lj = check_pair(xi_lj, alive_lj, lj_pot, lj_grid,
+                                  "LJ main path, jittered")
+
     # ---- B8: compute_eam_forces_pallas2 on the flagship Scene ------------
     # with phase 3's jittered positions: the start lattice's forces cancel
     # to ~1e-3 eV/A, where a relative comparison measures rounding only
@@ -890,6 +1160,43 @@ def main() -> int:
         sxi, styp, scl.alive, eam_s2, small.grid, 2, count_neighbors=True),
         eam_s2, typ=styp[scl.alive], ntypes=2)
 
+    # K12's masked result (B6's Scene entry) against the all-pairs oracle,
+    # a pair potential being an EAM with zero density and embedding
+    zero = dataclasses.replace(lj_pot, coef=np.zeros_like(lj_pot.coef),
+                               host=(((0.0,) * len(c_lj), 0.0, 1.0),))
+    s_res = b4.compute_pair_forces_pallas(
+        fused_step.cl_to_scene(scl.replace(xi=sxi), small.scene), lj_pot,
+        count_neighbors=True)
+    lj_h = lj_pot.at_host_precision()
+    oF, _, onn = t_forces.eam_forces_n2(
+        pos, torch.ones(len(pos), dtype=torch.bool, device="cuda"),
+        small.grid.box, EAMPotential(pair=lj_h, rho=zero, embed=zero))
+    r2 = (dr * dr).sum(-1)
+    inside = (r2 < small.grid.cutoff ** 2) & ~torch.eye(
+        len(pos), dtype=torch.bool, device="cuda")
+    oe = 0.5 * torch.where(inside, lj_h.interp(0, r2.clamp(min=1.0))[0],
+                           torch.zeros_like(r2)).sum(1)
+    sdims = small.grid.dims     # the oracle's atoms are in cells-last order
+    same = _to_cl(s_res.num_neighs, sdims)[scl.alive].double() == onn
+    o_f = float((_to_cl(s_res.force, sdims).permute(0, 2, 1)[scl.alive]
+                 .double() - oF).abs()[same].max() / oF.abs().max())
+    o_e = float((_to_cl(s_res.epot, sdims)[scl.alive].double() - oe)
+                .abs()[same].max() / oe.abs().max())
+    o_nn = int((~same).sum())
+    # the float32 Horner of phi rounds each term to ~2^-24 of the fit's
+    # coefficient mass (sum |c_k| = 7,082 for this LJ fit, 4e-4 eV, where
+    # the EAM fits' 1,510 give 1e-4): epot is held to 2 such roundings per
+    # pair of the busiest atom, relative to the largest |epot|
+    e_tol = (0.5 * float(onn.max()) * sum(abs(v) for v in c_lj) * 2.0 ** -23
+             / float(oe.abs().max()))
+    print(f"oracle ({len(pos)} atoms, K12 through compute_pair_forces_"
+          f"pallas, LJ): nn differs in {o_nn} ({near} pairs near the "
+          f"cutoff), elsewhere F rel {o_f:.3e}, epot rel {o_e:.3e} (limit "
+          f"{e_tol:.3e})")
+    check(o_nn <= near and o_f <= 1e-4 and o_e <= e_tol,
+          "K12 vs the all-pairs oracle")
+    del s_res, oF, onn, oe, r2, inside
+
     # kernel and plain-version times at the main-path shapes: one species,
     # then two with the scaled columns (K6-K9)
     ms, plain_ms = {}, {}
@@ -913,6 +1220,11 @@ def main() -> int:
                                              dFn_main, eam, grid))):
         ms[name] = time_ms(fn, 10)
         plain_ms[name] = time_ms(fn_p, 2)
+    # K12 as the general step calls it: energy and stress, no count
+    ms["pair_half"] = time_ms(lambda: b4.pair_half(xi_lj, nbr_lj, lj_pot,
+                                                   lj_grid), 10)
+    plain_ms["pair_half"] = time_ms(lambda: b4.pair_half_plain(
+        xi_lj, nbr_lj, lj_pot, lj_grid), 2)
     oc = grid.capacity + 8
     ms["compact"] = time_ms(
         lambda: rebin_cl.compact(tgt, candf, candi, oc), 10)
@@ -942,6 +1254,12 @@ def main() -> int:
                   + 3 * 13 * 4}
     work = {n: (FLOPS_PER_PAIR[n] * pairs, bytes_slot[n] * slots)
             for n in bytes_slot}
+    # K12: xi and the 13 views in; the i-sums of fx, fy, fz, e, the six
+    # stress sums and the 13 j-partials of the four out
+    print(f"LJ pairs inside the cutoff: {pairs_lj:.0f}")
+    work["pair_half"] = (FLOPS_PER_PAIR["pair_half"] * pairs_lj,
+                         (12 + 13 * 12 + 4 * 4 + 6 * 4 + 4 * 13 * 4)
+                         * alive_lj.numel())
     tab_bytes = win._mt_table(eam_s2, xi.device).numel() * 4
     for n, m in MT_OF.items():
         work[m] = (FLOPS_PER_PAIR[m] * pairs
@@ -951,7 +1269,7 @@ def main() -> int:
     work["compact"] = (0.0, sum(t.numel() * t.element_size()
                                 for t in (tgt, candf, candi)) + k3_out)
     del xi, xi_m, cl_m, cl_c, cl_k, cl_p, small, scl, tcl, tcl4, dF, dF2
-    del tcl_o, nbr_main, dF_half, dFn_main
+    del tcl_o, nbr_main, dF_half, dFn_main, xi_lj, xi_lj0, nbr_lj, alive_lj
     torch.cuda.empty_cache()
 
     # ---- 4. the main path (warmed so that the skin check triggers) -----
@@ -1165,6 +1483,13 @@ def main() -> int:
     check_all(xr, ar, deam, dgrid, rlabel)
     del dcl, xr, ar, sim, state
     errs["compact"] = k3_err
+    torch.cuda.empty_cache()
+
+    # ---- 7. the general pair step through the driver ------------------
+    lj_report = run_lj_driver(dev_name, smi)
+    launches["pair_half"] = lj_report["launches"]["pair_half"]
+    errs["pair_half"] = max(errs["pair_half"],
+                            lj_report["k12_vs_plain_last_state"]["max_abs"])
 
     rows = [("eam_rho", "eam_win.cu", "imd_tpu/ops/forces_win.py:306"),
             ("eam_force", "eam_win.cu", "imd_tpu/ops/forces_win.py:411"),
@@ -1182,6 +1507,8 @@ def main() -> int:
              "imd_tpu/ops/forces_pallas.py:641"),
             ("eam_force_half", "eam_half.cu",
              "imd_tpu/ops/forces_pallas.py:747"),
+            ("pair_half", "eam_half.cu",
+             "imd_tpu/ops/forces_pallas.py:487"),
             # B8 (compute_eam_forces_pallas2) runs K4/K5: their times, its
             # launches and errors on the flagship Scene
             ("eam_rho_e_b8", "eam_win.cu",

@@ -33,13 +33,14 @@ def count_phases(text: str) -> int:
     return mx
 
 
-def main(argv=None, on_phase=None) -> int:
+def main(argv=None, on_phase=None, timer=None) -> int:
     """Run every phase of a parameter file; ``on_phase(sim, state)`` is
     called after each phase's run (a hook for drivers that report on the
-    run, such as chip_smoke.py)."""
+    run, such as chip_smoke.py), and ``timer`` (phases.CudaPhaseTimer)
+    times the step's phases."""
     ap = argparse.ArgumentParser(
         prog="imd_tpu_torch",
-        description="imd_tpu's fused EAM+TTM driver on PyTorch and CUDA")
+        description="imd_tpu's param-file driver on PyTorch and CUDA")
     ap.add_argument("-p", "--paramfile", required=True)
     ap.add_argument("-r", "--restart", type=int, default=None,
                     help="restart number: read <outfiles>.<N>.{chkpt,itr}")
@@ -52,6 +53,7 @@ def main(argv=None, on_phase=None) -> int:
     import torch
 
     from imd_tpu_torch.config import SimConfig, parse_param_text
+    from imd_tpu_torch.phases import no_timer
     from imd_tpu_torch.simulation import Simulation
     from imd_tpu_torch.scene import n_atoms
 
@@ -95,7 +97,8 @@ def main(argv=None, on_phase=None) -> int:
                     f"{cfg.outfiles}.{args.restart:05d}.chkpt exists in "
                     f"{workdir}")
         sim = Simulation(cfg, workdir=workdir, dtype=dtype,
-                         device=args.device)
+                         device=args.device,
+                         timer=no_timer if timer is None else timer)
         if prev_scene is not None:
             sim.adopt_scene(prev_scene)
             sim.step_count = prev_step

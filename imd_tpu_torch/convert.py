@@ -1,8 +1,8 @@
 """Carry state across from the JAX package, and back to NumPy.
 
 The ``from_*`` functions take imd_tpu objects (Box, CellGrid, PotTable,
-PolyPotential, EAMPotential with any number of type columns, Scene with
-its types, CLState, TTMParams, TTMGrid) and read
+PolyPotential, a pair potential or an EAMPotential with any number of type
+columns, Scene with its types, CLState, TTMParams, TTMGrid) and read
 every field through ``np.asarray``, so this module never imports jax: it
 works on anything with those attributes.  ``to_numpy`` turns a port
 dataclass back into a dict of NumPy arrays.  The parity tests use both so
@@ -55,13 +55,18 @@ def from_table(pt) -> PotTable:
                        for f in dataclasses.fields(PotTable)})
 
 
+def from_pot(pot):
+    """A table (PotTable) or its fastpoly fit (PolyPotential, B6's and the
+    kernels' input) with all its type columns: a pair potential, or one
+    table of an EAM set."""
+    return from_table(pot) if hasattr(pot, "table") else from_poly(pot)
+
+
 def from_eam(eam) -> EAMPotential:
-    """An EAM set of tables or of fastpoly fits (the kernels' input), with
-    all its type columns."""
-    def one(p):
-        return from_table(p) if hasattr(p, "table") else from_poly(p)
-    return EAMPotential(pair=one(eam.pair), rho=one(eam.rho),
-                        embed=one(eam.embed))
+    """An EAM set of tables or of fastpoly fits, with all its type
+    columns."""
+    return EAMPotential(pair=from_pot(eam.pair), rho=from_pot(eam.rho),
+                        embed=from_pot(eam.embed))
 
 
 def from_scene(scene, device="cuda") -> Scene:

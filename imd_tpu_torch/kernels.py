@@ -44,7 +44,7 @@ MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (the stencil family),
                       # candidates (K3)
 MAX_NT = 4            # species the multi-type kernels take (eam_win.cu)
 HALF_MAX_CAP = 128    # capacity the half-stencil kernels take: one cell's
-                      # [cap][cap] scratch in shared memory (eam_half.cu)
+                      # [cap][cap] scratches in shared memory (eam_half.cu)
 # order of the tables in the multi-type coefficient buffer
 # [4][ntypes^2][NPOLY + 2] (eam_win.cu: T_RHO_V ...)
 MT_TABLES = ("rho_v", "pair_v", "pair_g", "rho_g")
@@ -52,7 +52,7 @@ MT_TABLES = ("rho_v", "pair_v", "pair_g", "rho_g")
 LAUNCHES = {"eam_rho": 0, "eam_force": 0, "compact": 0, "eam_rho_e": 0,
             "eam_force_s": 0, "eam_rho_mt": 0, "eam_force_mt": 0,
             "eam_rho_e_mt": 0, "eam_force_s_mt": 0, "eam_rho_half": 0,
-            "eam_force_half": 0}
+            "eam_force_half": 0, "pair_half": 0}
 
 
 def reset_launches() -> None:
@@ -173,11 +173,16 @@ def lib() -> ctypes.CDLL:
                                           pp, ci, vp]
         cdll.imd_eam_force_half.argtypes = [vp, vp, vp, vp, vp, vp, pp, ci,
                                             vp]
+        # pair: xi, nbr, out_i, out_s, out_j, energy, count, nr2, params,
+        # nc, stream
+        cdll.imd_pair_half.argtypes = [vp, vp, vp, vp, vp, ci, ci,
+                                       ctypes.c_float, pp, ci, vp]
         for fn in (cdll.imd_eam_rho, cdll.imd_eam_rho_e, cdll.imd_eam_force,
                    cdll.imd_eam_force_s, cdll.imd_compact,
                    cdll.imd_eam_rho_mt, cdll.imd_eam_rho_e_mt,
                    cdll.imd_eam_force_mt, cdll.imd_eam_force_s_mt,
-                   cdll.imd_eam_rho_half, cdll.imd_eam_force_half):
+                   cdll.imd_eam_rho_half, cdll.imd_eam_force_half,
+                   cdll.imd_pair_half):
             fn.restype = ci
         _lib = cdll
     return _lib

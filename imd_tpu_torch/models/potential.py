@@ -1,9 +1,11 @@
-"""Potentials for the fused hot loop (port of imd_tpu/models/potential.py).
+"""Potentials and their fits (port of imd_tpu/models/potential.py).
 
-What the slice needs: the tabulated ``PotTable`` with the reference's
+What the port needs: the tabulated ``PotTable`` with the reference's
 3-point interpolation (host NumPy, used only to fit), the IMD table files
 (``read_pot_table`` for formats 1 and 2, ``read_eam`` with the alloy
-column transpose, ``write_pot_table``), ``analytic_eam``, ``tile_columns``
+column transpose, ``write_pot_table``), ``analytic_eam``, the analytic
+pair tables (``lj_table``, ``morse_table``, ``ljg_table``,
+``buckingham_table``, smoothed as ``create_pot_table`` does), ``tile_columns``
 (type-pair column sets made from one column), and the single-window
 monomial-Horner ``PolyPotential`` that the kernels evaluate, fitted per
 column by ``to_fastpoly`` in NumPy float64.
@@ -285,6 +287,125 @@ def _smoothed_samples(fn, dfn_dr2, r2: np.ndarray, r2_cut: float):
     inner = fn(r2) - shift
     tail = A * np.maximum(r2_cut - r2, 0.0) ** 2
     return np.where(r2 < x0, inner, np.where(r2 <= r2_cut, tail, 0.0))
+
+
+def _tri(v, i: int, j: int, ntypes: int) -> float:
+    """Parameter of type pair (i, j) from a scalar or an upper-triangular
+    linearized sequence of length ntypes*(ntypes+1)/2."""
+    if np.isscalar(v):
+        return float(v)
+    a, b = min(i, j), max(i, j)
+    return float(v[a * ntypes - a * (a + 1) // 2 + b])
+
+
+def _pair_tables(ntypes: int, res: int, dtype, column) -> PotTable:
+    """ntypes^2 smoothed columns; ``column(i, j)`` gives (V, dV/dr^2,
+    r2_begin, r2_cut) of type pair (i, j)."""
+    cols, begin, end, step = [], [], [], []
+    for i in range(ntypes):
+        for j in range(ntypes):
+            V, dV, r2b, r2c = column(i, j)
+            r2 = np.linspace(r2b, r2c, res)
+            cols.append(_smoothed_samples(V, dV, r2, r2c))
+            begin.append(r2b)
+            end.append(r2c)
+            step.append((r2c - r2b) / (res - 1))
+    return _make_table(cols, begin, end, step, dtype)
+
+
+def lj_table(epsilon, sigma, r_cut, ntypes: int = 1, r_begin=None,
+             res: int = 1000, dtype=np.float32) -> PotTable:
+    """Smoothly cut Lennard-Jones in IMD's convention V = eps ((sig/r)^12
+    - 2 (sig/r)^6), minimum -eps at r = sig (twin of
+    imd_tpu.models.potential.lj_table, potaccess.h PAIR_INT_LJ)."""
+    def column(i, j):
+        eps, sig = _tri(epsilon, i, j, ntypes), _tri(sigma, i, j, ntypes)
+        rc = _tri(r_cut, i, j, ntypes)
+        rb = 0.1 * sig if r_begin is None else _tri(r_begin, i, j, ntypes)
+
+        def V(x):
+            s2 = sig * sig / x
+            s6 = s2 ** 3
+            return eps * (s6 * s6 - 2.0 * s6)
+
+        def dV(x):
+            s2 = sig * sig / x
+            s6 = s2 ** 3
+            return -6.0 * eps / x * (s6 * s6 - s6)
+        return V, dV, rb * rb, rc * rc
+    return _pair_tables(ntypes, res, dtype, column)
+
+
+def morse_table(epsilon, alpha, sigma, r_cut, ntypes: int = 1,
+                res: int = 1000, dtype=np.float32) -> PotTable:
+    """Smoothly cut Morse potential V = eps ((1 - e^{-alpha (r - sig)})^2
+    - 1) (twin of imd_tpu.models.potential.morse_table,
+    imd_potential.c:874-882)."""
+    def column(i, j):
+        eps, al = _tri(epsilon, i, j, ntypes), _tri(alpha, i, j, ntypes)
+        sig, rc = _tri(sigma, i, j, ntypes), _tri(r_cut, i, j, ntypes)
+
+        def V(x):
+            r = np.sqrt(x)
+            ex = np.exp(-al * (r - sig))
+            return eps * ((1.0 - ex) ** 2 - 1.0)
+
+        def dV(x):
+            r = np.sqrt(x)
+            ex = np.exp(-al * (r - sig))
+            return eps * al * ex * (1.0 - ex) / r
+        return V, dV, (0.1 * sig) ** 2, rc * rc
+    return _pair_tables(ntypes, res, dtype, column)
+
+
+def ljg_table(epsilon, sigma, ljg_eps, ljg_r0, ljg_sig, r_cut,
+              ntypes: int = 1, res: int = 1000,
+              dtype=np.float32) -> PotTable:
+    """Smoothly cut Lennard-Jones-Gauss: IMD's LJ minus ljg_eps exp(-(r -
+    ljg_r0)^2 / (2 ljg_sig^2)) (twin of
+    imd_tpu.models.potential.ljg_table, imd_potential.c:1457-1474)."""
+    def column(i, j):
+        eps, sig = _tri(epsilon, i, j, ntypes), _tri(sigma, i, j, ntypes)
+        ge, gr0 = _tri(ljg_eps, i, j, ntypes), _tri(ljg_r0, i, j, ntypes)
+        gs, rc = _tri(ljg_sig, i, j, ntypes), _tri(r_cut, i, j, ntypes)
+
+        def V(x):
+            r = np.sqrt(x)
+            s6 = (sig * sig / x) ** 3
+            return (eps * (s6 * s6 - 2.0 * s6)
+                    - ge * np.exp(-0.5 * ((r - gr0) / gs) ** 2))
+
+        def dV(x):
+            r = np.sqrt(x)
+            s6 = (sig * sig / x) ** 3
+            dlj = -6.0 * eps / x * (s6 * s6 - s6)
+            u = (r - gr0) / gs
+            dg = ge * np.exp(-0.5 * u * u) * u / gs / (2.0 * r)
+            return dlj + dg
+        return V, dV, (0.1 * sig) ** 2, rc * rc
+    return _pair_tables(ntypes, res, dtype, column)
+
+
+def buckingham_table(a, c, sigma, r_cut, ntypes: int = 1, res: int = 1000,
+                     dtype=np.float32) -> PotTable:
+    """Smoothly cut Buckingham potential V = A exp(-r/sigma) - C
+    (sigma/r)^6 (twin of imd_tpu.models.potential.buckingham_table,
+    imd_potential.c:1503-1516)."""
+    def column(i, j):
+        A, C = _tri(a, i, j, ntypes), _tri(c, i, j, ntypes)
+        sig, rc = _tri(sigma, i, j, ntypes), _tri(r_cut, i, j, ntypes)
+
+        def V(x):
+            r = np.sqrt(x)
+            s6 = (sig * sig / x) ** 3
+            return A * np.exp(-r / sig) - C * s6
+
+        def dV(x):
+            r = np.sqrt(x)
+            return (-A * np.exp(-r / sig) / (2.0 * r * sig)
+                    + 3.0 * C * (sig ** 6) / x ** 4)
+        return V, dV, (0.1 * sig) ** 2, rc * rc
+    return _pair_tables(ntypes, res, dtype, column)
 
 
 def analytic_eam(r_cut: float = 5.0, r0: float = 2.86, E_c: float = 3.39,

@@ -1,6 +1,6 @@
-"""EAM observables on the cells-last layout: forces, per-atom energy, host
-density, neighbour count, virial and pressure tensor (port of
-imd_tpu/ops/forces_pallas.py:216 ``eam_kernels_cl`` and :395
+"""EAM observables and the pair engine on the cells-last layout: forces,
+per-atom energy, host density, neighbour count, virial and pressure tensor
+(port of imd_tpu/ops/forces_pallas.py:216 ``eam_kernels_cl`` and :395
 ``compute_eam_forces_pallas``, the kernel pair the driver calls at every
 .eng interval, and of their alloy twins :933 ``eam_kernels_cl_mt`` and
 :1210 ``compute_eam_forces_pallas_mt``).
@@ -49,6 +49,13 @@ at SENTINEL_DEAD, r^2 = 0) count as a pair, so only live slots of the
 assembled values are meaningful; ``eam_kernels_cl_split`` masks them.  The
 TPU's lane padding (``_split_geometry``, ``block``, ``unroll``) has no
 counterpart: those arguments are taken and ignored.
+
+B6, ``compute_pair_forces_pallas`` (imd_tpu :431), the general step's pair
+engine, runs the same contract for one pair table: K12 ``pair_half``
+(csrc/eam_half.cu, beside ``pair_half_plain``) sweeps the own cell and the
+13 views once per pair and returns the i-sums and j-partials of fx, fy, fz
+(and of e = phi/2 to each side, and of the count) and six i-side stress
+sums; ``_assemble`` rolls the j-partials back.
 """
 
 from __future__ import annotations
@@ -63,10 +70,11 @@ from imd_tpu_torch.ops.forces_fast import (_from_cl, _roll_cells,
                                            _roll_cells_back, _to_cl,
                                            _wrap_shift_mask_cl)
 from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, _check_cuda_dF,
-                                          _check_cuda_inputs, _horner_g2,
-                                          _horner_v,
+                                          _check_cuda_inputs, _horner_g,
+                                          _horner_g2, _horner_v,
                                           _mt_grad_pairs, _mt_stencil_pairs,
-                                          _mt_table, _params_for,
+                                          _mt_table, _pair_params,
+                                          _params_for,
                                           _poly_consts, _select_cols,
                                           _stencil_pairs, check_mt_tables,
                                           embed_mt)
@@ -90,7 +98,7 @@ class ForceResult:
     virial: torch.Tensor       # float64 scalar
     presstens: torch.Tensor    # float64 [6] xx yy zz yz zx xy
     num_neighs: torch.Tensor   # [gx,gy,gz,cap] int32
-    rho: torch.Tensor          # [gx,gy,gz,cap]
+    rho: torch.Tensor = None   # [gx,gy,gz,cap] (EAM engines)
 
 
 def eam_rho_e_plain(xi, alive, eam, grid):
@@ -357,15 +365,19 @@ def make_neighbor_views(grid, dtype, device="cpu"):
     return views
 
 
-def prep_neighbors(scene: Scene):
+def prep_neighbors(scene: Scene, views=None):
     """Cells-last views with sentinel-pushed invalid positions: (xi
     [cap,3,NC] with dead slots at SENTINEL_DEAD, nbr [13,cap,3,NC],
-    mask [cap,NC])."""
+    mask [cap,NC]).  ``views``: ``make_neighbor_views`` of the scene's
+    grid, made once by a caller that steps (its shifts and validity come
+    from the host), else made here."""
     grid = scene.grid
     mask = _to_cl(scene.type, grid.dims) >= 0
     xi = torch.where(mask[:, None, :], _to_cl(scene.pos, grid.dims),
                      SENTINEL_DEAD).contiguous()
-    return xi, make_neighbor_views(grid, xi.dtype, xi.device)(xi), mask
+    if views is None:
+        views = make_neighbor_views(grid, xi.dtype, xi.device)
+    return xi, views(xi), mask
 
 
 def _assemble(dims, acc_i, accj):
@@ -588,3 +600,132 @@ def eam_kernels_cl_split(xi, nbr, mask, eam, grid,
         dF = 0.5 * emb_g * maskf
         F = eam_f_pass(xi, nbr, dF, eam, grid)
     return F * maskf[:, None, :], rho * maskf, nn * maskf
+
+
+# ---------------------------------------------------------------------------
+# B6: the pair engine over pre-rolled half-stencil views (K12)
+# ---------------------------------------------------------------------------
+
+def _pair_keys(need_energy: bool, count_neighbors: bool):
+    """The per-pair outputs that get i-sums and j-partials, in K12's
+    order."""
+    return (("fx", "fy", "fz") + (("e",) if need_energy else ())
+            + (("nn",) if count_neighbors else ()))
+
+
+def pair_half_plain(xi, nbr, pot, grid, count_neighbors: bool = False,
+                    neigh_r2: float = 0.0, need_energy: bool = True,
+                    need_stress: bool = True):
+    """Plain torch K12: (acc_i [nk,cap,NC], acc_s [6,cap,NC] or None,
+    acc_j [nk,13,cap,NC]).  For every pair of the half stencil, with g =
+    2 dphi/dr^2 of the fit: fx, fy, fz (-g d on the i side, +g d on the j
+    side), e (phi/2 to each side) when ``need_energy``, the count within
+    ``neigh_r2`` when ``count_neighbors``; and the six stress sums -g d_a
+    d_b (Voigt xx yy zz yz zx xy), i side only, when ``need_stress``.
+    Unmasked, as K10/K11."""
+    rcut2 = float(grid.cutoff) ** 2
+    nr2 = _nr2(grid, neigh_r2)
+    pair_c = _poly_consts(pot)
+    keys = _pair_keys(need_energy, count_neighbors)
+    cap, _, nc = xi.shape
+    acc_i = xi.new_zeros((len(keys), cap, nc))
+    acc_j = xi.new_zeros((len(keys), NOF, cap, nc))
+    acc_s = xi.new_zeros((6, cap, nc)) if need_stress else None
+    for m, dx, dy, dz, r2, insf in _half_pairs(xi, nbr, rcut2):
+        g = _horner_g(r2, pair_c) * insf
+        d = (dx, dy, dz)
+        gd = [g * dc for dc in d]
+        for k in range(3):
+            if m < 0:
+                acc_i[k] = -gd[k].sum(1) + gd[k].sum(0)
+            else:
+                acc_i[k] += -gd[k].sum(1)
+                acc_j[k, m] = gd[k].sum(0)
+        if need_energy:
+            _book(acc_i, acc_j, 3, m, 0.5 * (_horner_v(r2, pair_c) * insf))
+        if count_neighbors:
+            _book(acc_i, acc_j, len(keys) - 1, m, insf if nr2 >= rcut2
+                  else insf * (r2 < nr2).to(xi.dtype))
+        if need_stress:
+            for k, (a, b) in enumerate(_VOIGT):
+                acc_s[k] += -(gd[a] * d[b]).sum(1)
+    return acc_i, acc_s, acc_j
+
+
+def pair_half(xi, nbr, pot, grid, count_neighbors: bool = False,
+              neigh_r2: float = 0.0, need_energy: bool = True,
+              need_stress: bool = True):
+    """K12 wrapper: ``pair_half_plain``'s (acc_i, acc_s, acc_j)."""
+    if not xi.is_cuda:
+        if xi.device.type != "cpu":
+            raise TypeError(f"unsupported device {xi.device}")
+        return pair_half_plain(xi, nbr, pot, grid, count_neighbors,
+                               neigh_r2, need_energy, need_stress)
+    _check_half_inputs(xi, nbr, grid)
+    cap, _, nc = xi.shape
+    nk = len(_pair_keys(need_energy, count_neighbors))
+    acc_i = torch.empty((nk, cap, nc), dtype=xi.dtype, device=xi.device)
+    acc_j = torch.empty((nk, NOF, cap, nc), dtype=xi.dtype,
+                        device=xi.device)
+    acc_s = (torch.empty((6, cap, nc), dtype=xi.dtype, device=xi.device)
+             if need_stress else None)
+    err = kernels.lib().imd_pair_half(
+        xi.data_ptr(), nbr.data_ptr(), acc_i.data_ptr(),
+        0 if acc_s is None else acc_s.data_ptr(), acc_j.data_ptr(),
+        int(bool(need_energy)), int(bool(count_neighbors)),
+        _nr2(grid, neigh_r2), _pair_params(pot, grid, cap), nc,
+        kernels.stream_ptr(xi.device))
+    kernels.check(err, "pair_half")
+    kernels.LAUNCHES["pair_half"] += 1
+    return acc_i, acc_s, acc_j
+
+
+def compute_pair_forces_pallas(scene: Scene, pot, ntypes: int = 1,
+                               count_neighbors: bool = False,
+                               neigh_r2: float = 0.0, block: int = 256,
+                               need_energy: bool = True,
+                               need_stress=None, timer=no_timer,
+                               views=None) -> ForceResult:
+    """B6 (imd_tpu/ops/forces_pallas.py:431): the pair engine of the
+    general step, one species, on the fastpoly fit ``pot``
+    (to_fastpoly(pair, vcap=50)).  Builds the 13 views (``prep_neighbors``,
+    timed as ``views``), runs K12 and assembles (``forces``).  Returns the
+    masked force, epot (zero unless ``need_energy``) and neighbour count
+    (zero unless ``count_neighbors``), the virial and the pressure tensor
+    (float64 sums of K12's i-side stress; zero unless ``need_stress``,
+    which defaults to ``need_energy``).  imd_tpu bakes table column 0
+    whatever ``ntypes`` says (ROADMAP C3); the port refuses ``ntypes`` > 1.
+    ``views`` as in ``prep_neighbors``; ``block`` is the TPU's lane block
+    and is ignored."""
+    if ntypes > 1:
+        raise ValueError(
+            f"compute_pair_forces_pallas is single-species: imd_tpu's B6 "
+            f"evaluates table column 0 for every pair whatever the types "
+            f"(ROADMAP C3), so ntypes {ntypes} is refused")
+    if need_stress is None:
+        need_stress = need_energy
+    grid = scene.grid
+    dims = grid.dims
+    with timer("views"):
+        xi, nbr, mask = prep_neighbors(scene, views)
+    with timer("forces"):
+        acc_i, acc_s, acc_j = pair_half(xi, nbr, pot, grid, count_neighbors,
+                                        neigh_r2, need_energy, need_stress)
+        keys = _pair_keys(need_energy, count_neighbors)
+        acc = {k: _assemble(dims, acc_i[n], acc_j[n])
+               for n, k in enumerate(keys)}
+        maskf = mask.to(xi.dtype)
+        zero = torch.zeros_like(maskf)
+        F = torch.stack([acc["fx"], acc["fy"], acc["fz"]], 1) \
+            * maskf[:, None, :]
+        epot = acc["e"] * maskf if need_energy else zero
+        nn = acc["nn"] * maskf if count_neighbors else zero
+        if need_stress:
+            presstens = acc_s.to(torch.float64).sum(dim=(1, 2))
+        else:
+            presstens = torch.zeros(6, dtype=torch.float64,
+                                    device=xi.device)
+        out = ForceResult(force=_from_cl(F, dims), epot=_from_cl(epot, dims),
+                          virial=presstens[:3].sum(), presstens=presstens,
+                          num_neighs=_from_cl(nn.to(torch.int32), dims))
+    return out

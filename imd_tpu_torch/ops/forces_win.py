@@ -237,7 +237,7 @@ def embed_mt(eam, rho, typ, ntypes):
 @functools.lru_cache(maxsize=16)
 def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
     """ctypes EamParams from the baked host tuples (all hashable);
-    ``rho_h``/``pair_h`` None leaves the polynomials empty (the multi-type
+    ``rho_h``/``pair_h`` None leaves their polynomials empty (the multi-type
     kernels read theirs from ``_mt_table``)."""
     p = kernels.EamParams()
 
@@ -253,8 +253,9 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
 
     if rho_h is not None:
         fill(p.rho_v, *rho_h)
-        fill(p.pair_g, _deriv_coefs(pair_h), *pair_h[1:])
         fill(p.rho_g, _deriv_coefs(rho_h), *rho_h[1:])
+    if pair_h is not None:
+        fill(p.pair_g, _deriv_coefs(pair_h), *pair_h[1:])
         fill(p.pair_v, *pair_h)
     p.rcut2 = rcut2
     for k in range(9):
@@ -290,6 +291,14 @@ def _check_cuda_dF(dF, xi, name):
             or not dF.is_contiguous() or dF.device != xi.device:
         raise TypeError(f"{name} takes contiguous float32 dF [cap,NC] "
                         "on the device of xi")
+
+
+def _pair_params(pot, grid, cap):
+    """EamParams of a single-species pair fit (the density polynomials
+    empty): K12's value and derivative Horners of phi."""
+    h = tuple(float(v) for v in grid.box.h.reshape(-1))
+    return _eam_params(None, _poly_consts(pot), float(grid.cutoff) ** 2, h,
+                       tuple(grid.box.pbc), tuple(grid.dims), int(cap))
 
 
 def _params_for(eam, grid, cap):

@@ -10,8 +10,12 @@ Layout is the JAX package's cell-major one,
 so tests compare like with like.  The fused hot loop converts it once to the
 cells-last ``CLState`` (ops/fused_step.py) and keeps it there.
 
-Binning is the host NumPy path of the JAX package (``_bin_flat_host``),
-bit-identical to it: one bulk host->device copy at set-up.
+Set-up bins on the host, as the JAX package does (``_bin_flat_host``,
+bit-identical to it): one bulk host->device copy.  ``rebin`` re-bins on the
+scene's device (``_bin_flat``, the JAX package's traced binning: a stable
+argsort by cell, the rank within each run of one cell, a scatter to the
+slots), so the general step's skin-triggered rebin moves no atom through the
+host; it gives imd_tpu's slot order.  ``needs_rebin`` is the skin check.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from imd_tpu_torch.ops.forces import min_image
 from imd_tpu_torch.ops.geometry import CellGrid, host_bin_ijk, np_dtype
 
 
@@ -137,18 +142,91 @@ def n_atoms(scene: Scene) -> int:
     return int(scene.mask.sum())
 
 
+def _mat(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(m, device=like.device).to(like.dtype)
+
+
+def wrap(box, pos: torch.Tensor) -> torch.Tensor:
+    """Positions wrapped into the box along its periodic axes (Box.wrap)."""
+    frac = pos @ _mat(box.inv_h, pos)
+    period = torch.tensor(box.pbc, dtype=frac.dtype, device=frac.device)
+    return (frac - torch.floor(frac) * period) @ _mat(box.h, pos)
+
+
+def cell_index(grid: CellGrid, pos: torch.Tensor) -> torch.Tensor:
+    """Flat cell id (int64) of wrapped positions [N, 3] (CellGrid.
+    cell_index)."""
+    frac = pos @ _mat(grid.box.inv_h, pos)
+    dims = torch.tensor(grid.dims, dtype=frac.dtype, device=frac.device)
+    ijk = torch.floor(frac * dims).to(torch.int64)
+    ijk = torch.minimum(ijk.clamp(min=0), torch.tensor(
+        grid.dims, device=pos.device) - 1)
+    gy, gz = grid.dims[1], grid.dims[2]
+    return (ijk[:, 0] * gy + ijk[:, 1]) * gz + ijk[:, 2]
+
+
+def _bin_flat(grid: CellGrid, pos, arrays, cap):
+    """Scatter flat per-atom tensors into the padded cell layout on their
+    device (twin of imd_tpu.scene._bin_flat).  ``arrays`` must hold
+    'mask'.  Dead atoms and the atoms past a cell's capacity are dropped
+    (written to one spare slot that is cut off).  Returns the cell-shaped
+    dict and the overflow count as an int32 device scalar."""
+    gx, gy, gz = grid.dims
+    n_cells = gx * gy * gz
+    n = pos.shape[0]
+    wrapped = wrap(grid.box, pos)
+    cidx = torch.where(arrays["mask"], cell_index(grid, wrapped), n_cells)
+    order = torch.argsort(cidx, stable=True)
+    cidx_s = cidx[order]
+    ar = torch.arange(n, device=pos.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=pos.device)
+    is_start[1:] = cidx_s[1:] != cidx_s[:-1]
+    rank = ar - torch.cummax(torch.where(is_start, ar, 0), 0).values
+    alive_s = cidx_s < n_cells
+    target = torch.where(alive_s & (rank < cap), cidx_s * cap + rank,
+                         n_cells * cap)
+    out = {}
+    for name, a in list(arrays.items()) + [("pos", wrapped)]:
+        if name == "mask":
+            continue
+        fill = -1 if not a.is_floating_point() else 0
+        binned = torch.full((n_cells * cap + 1,) + tuple(a.shape[1:]), fill,
+                            dtype=a.dtype, device=a.device)
+        binned[target] = a[order]
+        out[name] = binned[:-1].reshape((gx, gy, gz, cap) + tuple(a.shape[1:]))
+    overflow = (alive_s & (rank >= cap)).sum().to(torch.int32)
+    return out, overflow
+
+
 def rebin(scene: Scene, grid: CellGrid | None = None) -> Scene:
-    """Re-bin the live atoms into ``grid`` (default: the scene's own) on
-    the host, resetting the skin reference (fix_cells; imd_tpu's rebin
-    runs the same binning traced).  Epot and forces are not carried."""
+    """Re-sort every atom into its current cell of ``grid`` (default: the
+    scene's own) on the scene's device, resetting the skin reference
+    (fix_cells; imd_tpu/scene.py:225).  Epot travels with its atom,
+    forces are zeroed; atoms past a cell's capacity are dropped and
+    counted in ``overflow``."""
     grid = scene.grid if grid is None else grid
-    flat = {k: v.detach().cpu().numpy()
-            for k, v in flatten_atoms(scene).items()}
-    m = flat["mask"]
-    return make_scene(grid, flat["pos"][m], mom=flat["mom"][m],
-                      mass=flat["mass"][m], type=flat["type"][m],
-                      vtype=flat["vtype"][m], id=flat["id"][m],
-                      dtype=scene.pos.dtype, device=scene.pos.device)
+    flat = flatten_atoms(scene)
+    arrays = {k: flat[k] for k in ("mask", "mom", "mass", "type", "vtype",
+                                   "id", "epot")}
+    out, overflow = _bin_flat(grid, flat["pos"], arrays, grid.capacity)
+    return scene.replace(
+        pos=out["pos"], mom=out["mom"], force=torch.zeros_like(out["pos"]),
+        epot=out["epot"], mass=out["mass"], type=out["type"],
+        vtype=out["vtype"], id=out["id"], nbl_ref_pos=out["pos"],
+        overflow=scene.overflow + overflow, grid=grid)
+
+
+def max_displacement2(scene: Scene) -> torch.Tensor:
+    """Largest squared displacement of a live atom since the last rebin,
+    minimum image (check_nblist, imd_forces_nbl.c:1062)."""
+    d = min_image(scene.grid.box, scene.pos - scene.nbl_ref_pos)
+    d2 = (d * d).sum(-1)
+    return torch.where(scene.mask, d2, torch.zeros_like(d2)).max()
+
+
+def needs_rebin(scene: Scene, margin: float) -> torch.Tensor:
+    """True (a device bool) when an atom moved more than half the skin."""
+    return max_displacement2(scene) > (0.5 * margin) ** 2
 
 
 def grow_capacity(scene: Scene, new_cap: int) -> Scene:

@@ -1,6 +1,8 @@
-"""The param-file driver on the fused path (port of imd_tpu/simulation.py:
-``Simulation`` for the configurations ``_fused_eligible`` sends to
-``run_fused``, simulation.py:1791, 2463-3155).
+"""The param-file driver (port of imd_tpu/simulation.py: ``Simulation``
+for the configurations ``_fused_eligible`` sends to ``run_fused``,
+simulation.py:1791, 2463-3155, and for single-species pair potentials under
+``ensemble nve``, which imd_tpu runs through its general step,
+simulation.py:1304, 2033).
 
 A run reads its configuration (``SimConfig``), loads the EAM tables (the
 reference's three files, or one DYNAMO setfl/funcfl file; up to 4 species)
@@ -15,6 +17,14 @@ log at their intervals.  A rebin that overflows the cell capacity grows
 the slot axis and retries the block from the pre-block state; past
 ``REGRID_CAPACITY`` slots the grid is first re-derived for the current
 density (``_regrid_scene``).
+
+A pair potential (``potfile``, ``lj_*``/``ljg_*``, ``morse_*``,
+``buck_*``) runs the general step instead (``make_step_fn``, ``run_general``):
+the skin check (one host read a step: eager torch has no ``lax.cond``), the
+device rebin when it fires, B6 (``compute_pair_forces_pallas``: the 13
+views and K12 on the degree-12 fastpoly fit, as imd_tpu's TPU engine runs
+it) and the NVE leapfrog; ``.eng`` takes the step's own sums, as imd_tpu's
+general loop does.
 
 The loop over steps is Python (the JAX package's ``fori_loop`` blocks);
 the blocks stay, so output lands on the same steps as imd_tpu's.
@@ -45,19 +55,25 @@ from imd_tpu_torch.io.ttm_io import write_ttm
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.models.eos import FEGEos
 from imd_tpu_torch.kernels import MAX_NT
-from imd_tpu_torch.models.potential import (EAMPotential, eam_to_fastpoly,
-                                            read_eam, with_interpolation)
+from imd_tpu_torch.models.potential import (EAMPotential, buckingham_table,
+                                            eam_to_fastpoly, lj_table,
+                                            ljg_table, morse_table,
+                                            read_eam, read_pot_table,
+                                            to_fastpoly, with_interpolation)
 from imd_tpu_torch.models.setfl import maybe_read_dynamo
 from imd_tpu_torch.ops.forces_fast import _from_cl
-from imd_tpu_torch.ops.forces_pallas import eam_kernels_cl, eam_kernels_cl_mt
+from imd_tpu_torch.ops.forces_pallas import (compute_pair_forces_pallas,
+                                             eam_kernels_cl,
+                                             eam_kernels_cl_mt,
+                                             make_neighbor_views)
 from imd_tpu_torch.ops.fused_step import (cl_to_scene, make_fused_step,
                                           make_fused_ttm_step)
 from imd_tpu_torch.ops.geometry import (Box, CellGrid, choose_grid,
                                         measured_capacity, np_dtype,
                                         optimize_grid_dims, with_capacity)
-from imd_tpu_torch.phases import StepCounters
+from imd_tpu_torch.phases import StepCounters, no_timer
 from imd_tpu_torch.scene import (Scene, flatten_atoms, grow_capacity,
-                                 make_scene, n_atoms, rebin)
+                                 make_scene, n_atoms, needs_rebin, rebin)
 from imd_tpu_torch.utils.generate import generate_atoms
 from imd_tpu_torch.utils.timers import Timers
 
@@ -77,28 +93,32 @@ _FLAT_INTERACTION_TAGS = (
     "keating_alpha", "keating_beta", "keating_d", "ttbp_constant", "ttbp_sp",
     "ttbp_cut", "meam_e", "meam_a", "dp_alpha", "ms_D")
 
+# the tags of the pair potentials (lj_epsilon also starts ljg_*)
+_PAIR_TAGS = ("potfile", "lj_epsilon", "morse_epsilon", "buck_a")
+
 # (what, predicate, ROADMAP item): settings this port does not run yet
 UNPORTED = (
     (f"ntypes > {MAX_NT} (imd_tpu's general step)",
-     lambda c: c.ntypes > MAX_NT, "A9"),
+     lambda c: c.ntypes > MAX_NT, "A9c"),
     ("asympot with ntypes > 1 (imd_tpu's oracle engine)",
-     lambda c: c.asympot and c.ntypes > 1, "A9"),
-    ("pair potentials (potfile, lj_*, morse_*, buck_*)",
-     lambda c: not c.core_potential_file
-     or _any_set(c, ("potfile", "lj_epsilon", "morse_epsilon", "buck_a")),
-     "A9"),
+     lambda c: c.asympot and c.ntypes > 1, "A9c"),
+    # imd_tpu's B6 evaluates table column 0 for every pair (ROADMAP C3)
+    ("pair potentials (potfile, lj_*, morse_*, buck_*) with ntypes > 1",
+     lambda c: _any_set(c, _PAIR_TAGS) and c.ntypes > 1, "A9b"),
+    ("pair potentials (potfile, lj_*, morse_*, buck_*) under ensemble ttm",
+     lambda c: _any_set(c, _PAIR_TAGS) and c.ensemble == "ttm", "A9b"),
     ("analytic many-body interactions (stiweb/ters/keating/ttbp/meam/"
-     "dipole tags)", lambda c: _any_set(c, _FLAT_INTERACTION_TAGS), "A9"),
+     "dipole tags)", lambda c: _any_set(c, _FLAT_INTERACTION_TAGS), "A9c"),
     ("eeam_energy_file / adp_*potfile",
-     lambda c: _any_set(c, ("eeam_energy_file", "adp_upotfile")), "A9"),
+     lambda c: _any_set(c, ("eeam_energy_file", "adp_upotfile")), "A9c"),
     ("charges / Ewald (charge, sm_chi_0)",
-     lambda c: _any_set(c, ("charge", "sm_chi_0")), "A9"),
+     lambda c: _any_set(c, ("charge", "sm_chi_0")), "A9c"),
     ("ensembles other than nve and ttm",
-     lambda c: c.ensemble not in ("nve", "ttm"), "A9"),
+     lambda c: c.ensemble not in ("nve", "ttm"), "A9b"),
     ("the TTM under ensemble nve",
-     lambda c: c.ensemble == "nve" and c.ttm.enabled, "A9"),
+     lambda c: c.ensemble == "nve" and c.ttm.enabled, "A9c"),
     ("endtemp ramps", lambda c: c.endtemp > 0 and c.endtemp != c.starttemp,
-     "A9"),
+     "A9c"),
     ("per-step drivers (getmin/getsaddle, nclones, ep_*, shock_mode, "
      "pdecay, restrictions, fbc_*, zapp, bend, rigid groups, "
      "HOMDEF/DEFORM, spring_rate, epitax, bb_*)",
@@ -108,9 +128,9 @@ UNPORTED = (
          "bend_nmoments", "rigid_groups", "fbc_endforces", "fbc_dforces",
          "fbc_bdforces", "relax_rate", "lindef_interval", "max_deform_int",
          "ep_max_int", "spring_rate", "bb_epscrit"))
-     or c.nclones > 1 or any(r > 0 for r in c.epitax_rate), "A9"),
+     or c.nclones > 1 or any(r > 0 for r in c.epitax_rate), "A9c"),
     ("laser_rescale_mode other than 0 and 4",
-     lambda c: c.ttm.enabled and c.laser.rescale_mode not in (0, 4), "A9"),
+     lambda c: c.ttm.enabled and c.laser.rescale_mode not in (0, 4), "A9c"),
     ("tmm", lambda c: c.tmm.enabled, "A7"),
     ("nrb_*", lambda c: c.nrb.enabled, "A7"),
     ("filter_*", lambda c: c.filter.enabled, "A7"),
@@ -159,8 +179,21 @@ class SimState:
     ekin: float
     virial: float
     presstens: np.ndarray         # [6] xx yy zz yz zx xy
-    rho: torch.Tensor             # [gx,gy,gz,cap] host density
+    rho: Optional[torch.Tensor]   # [gx,gy,gz,cap] host density (EAM)
     ttm_grid: Optional[object] = None
+
+
+@dataclasses.dataclass(eq=False)
+class StepState:
+    """The general step's carry on the device (the fields of imd_tpu's
+    SimState that its nve step reads and writes)."""
+    scene: Scene
+    step: int                     # global step (completed iterations)
+    epot_total: torch.Tensor      # float64: sum of the last force call's
+    virial: torch.Tensor          # epot, its virial and pressure tensor
+    presstens: torch.Tensor
+    stats: integrate.StepStats
+    nbl_count: int = 0            # skin-triggered rebins of the run
 
 
 def _iv_due(gstep: int, iv: int) -> bool:
@@ -180,18 +213,25 @@ def _sync(device) -> None:
 
 
 class Simulation:
-    """Host-side driver owning config, potentials, atoms, I/O and the fused
-    step.  ``device`` is where the state lives ("cuda" by default)."""
+    """Host-side driver owning config, potentials, atoms, I/O and the
+    step.  ``device`` is where the state lives ("cuda" by default);
+    ``timer`` (phases.CudaPhaseTimer, or nothing) times the step's phases:
+    the fused step's, or the general step's ``skin``, ``rebin``,
+    ``views``, ``forces`` and ``integrate``."""
 
     def __init__(self, cfg: SimConfig, workdir: str = ".",
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", timer=no_timer):
         check_ported(cfg)
         self.cfg = cfg
         self.workdir = workdir
         self.dtype = dtype
         self.device = torch.device(device)
+        self.timer = timer
         self.timers = Timers()
         self.counters = StepCounters()
+        # (steps, seconds) of every block of the main loop that was kept
+        self.block_seconds = []
+        self.nbl_count = 0      # skin rebins of the general loop's run
         self.n_observe = 0
         self.eng: Optional[EngWriter] = None
         t0 = time.perf_counter()
@@ -209,10 +249,51 @@ class Simulation:
 
     # -- setup ----------------------------------------------------------
     def _load_potential(self):
-        """The EAM-table branch of imd_tpu's _load_potential
-        (simulation.py:180-207): a DYNAMO setfl/funcfl file by its suffix
-        (one file carries all three tables), else the reference's three
-        table files."""
+        """imd_tpu's _load_potential (simulation.py:180-275) for tables:
+        an EAM set (``core_potential_file``) if one is named, else a pair
+        table (``potfile``, or the analytic ``lj_*`` with ``ljg_*``,
+        ``morse_*``, ``buck_*``; ``r_cut`` defaults to 2.5 sigma)."""
+        cfg = self.cfg
+        self.eam = self.pair = None
+        if not cfg.core_potential_file:
+            self.pair = with_interpolation(self._pair_table(),
+                                           cfg.pot_interp)
+            self.cutoff = math.sqrt(self.pair.max_end)
+            return
+        self._load_eam()
+
+    def _pair_table(self):
+        cfg = self.cfg
+        dt = np_dtype(self.dtype)
+        nt = cfg.ntypes
+        if cfg.potfile:
+            return read_pot_table(self._path(cfg.potfile), nt * nt, True, dt)
+
+        def rc(sigma):
+            return cfg.r_cut or tuple(2.5 * s for s in sigma)
+        if cfg.lj_epsilon and any(cfg.ljg_eps):
+            return ljg_table(list(cfg.lj_epsilon), list(cfg.lj_sigma),
+                             list(cfg.ljg_eps), list(cfg.ljg_r0),
+                             list(cfg.ljg_sig), list(rc(cfg.lj_sigma)), nt,
+                             dtype=dt)
+        if cfg.lj_epsilon:
+            return lj_table(list(cfg.lj_epsilon), list(cfg.lj_sigma),
+                            list(rc(cfg.lj_sigma)), nt, dtype=dt)
+        if cfg.morse_epsilon:
+            return morse_table(list(cfg.morse_epsilon), list(cfg.morse_alpha),
+                               list(cfg.morse_sigma),
+                               list(rc(cfg.morse_sigma)), nt, dtype=dt)
+        if cfg.buck_a:
+            return buckingham_table(list(cfg.buck_a), list(cfg.buck_c),
+                                    list(cfg.buck_sigma),
+                                    list(rc(cfg.buck_sigma)), nt, dtype=dt)
+        raise ValueError("no potential configured "
+                         "(potfile / EAM files / lj_* parameters)")
+
+    def _load_eam(self):
+        """The EAM-table branch (simulation.py:180-207): a DYNAMO
+        setfl/funcfl file by its suffix (one file carries all three
+        tables), else the reference's three table files."""
         cfg = self.cfg
         dt = np_dtype(self.dtype)
         dyn = maybe_read_dynamo(self._path(cfg.core_potential_file), dt)
@@ -331,10 +412,16 @@ class Simulation:
             raise RuntimeError("phase handover lost atoms")
 
     def _select_engine(self):
-        """Always the port's kernels on the fitted polynomials.  imd_tpu
-        picks its Pallas engine only up to capacity 32 (a TPU VMEM limit,
-        simulation.py:398); the CUDA kernels have no such limit."""
-        self.eam_run = eam_to_fastpoly(self.eam)
+        """Always the port's kernels on the fitted polynomials, the EAM
+        set's or the pair table's (to_fastpoly with vcap 50, as imd_tpu's
+        Pallas engine, simulation.py:424-431).  imd_tpu picks that engine
+        only up to capacity 32 (a TPU VMEM limit, simulation.py:398); the
+        CUDA kernels have no such limit."""
+        self.eam_run = self.pair_run = None
+        if self.eam is not None:
+            self.eam_run = eam_to_fastpoly(self.eam)
+        else:
+            self.pair_run = to_fastpoly(self.pair, vcap=50.0)
 
     def _select_integrator(self):
         cfg = self.cfg
@@ -373,6 +460,11 @@ class Simulation:
 
     # -- the run --------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> SimState:
+        """The fused loop for EAM sets, the general step for a pair
+        potential (one species under ensemble nve: UNPORTED refuses the
+        rest), as imd_tpu's run() dispatches (simulation.py:2046)."""
+        if self.pair_run is not None:
+            return self.run_general(steps)
         return self.run_fused(steps)
 
     def _build(self, template: Scene, ttm_grid, step0: int):
@@ -384,12 +476,14 @@ class Simulation:
             laser = cfg.laser if cfg.laser.sigma_e > 0 else None
             step, cl = make_fused_ttm_step(
                 template, self.eam_run, cfg.timestep, self.ttm_params,
-                self.eos, laser, ntypes=cfg.ntypes, counters=self.counters)
+                self.eos, laser, ntypes=cfg.ntypes, timer=self.timer,
+                counters=self.counters)
             fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
                              device=self.device)
             return step, (cl, ttm_grid, fdi, step0)
         step, cl = make_fused_step(template, self.eam_run, cfg.timestep,
-                                   ntypes=cfg.ntypes, counters=self.counters)
+                                   ntypes=cfg.ntypes, timer=self.timer,
+                                   counters=self.counters)
         return (lambda c: (step(c)[0],)), (cl,)
 
     def observe(self, cl, template: Scene, gstep: int, ttm_grid):
@@ -447,48 +541,26 @@ class Simulation:
             prev_carry = carry
             b = _clamp_block(min(block, steps - done),
                              self.step_count + done, intervals)
+            t0 = time.perf_counter()
             with self.timers.section("main"):
                 for _ in range(b):
                     carry = step(*carry)
                 _sync(self.device)
             if int(carry[0].overflow) > 0:
-                # a rebin overflowed the cell capacity: grow the slot axis
-                # (alloc_cell, imd_alloc.c:551) and retry the block
-                grow_tries += 1
-                if grow_tries > 6:
-                    raise RuntimeError(
-                        f"cell capacity overflow persists after "
-                        f"{grow_tries - 1} growths (capacity "
-                        f"{self.grid.capacity})")
-                old = self.grid.capacity
-                new_cap = ((old + 8 + 7) // 8) * 8
-                print(f"# cell overflow: growing capacity {old} -> "
-                      f"{new_cap} and retrying the block", flush=True)
                 sc_prev = cl_to_scene(prev_carry[0], template).replace(
                     overflow=torch.zeros_like(prev_carry[0].overflow))
-                regridded = None
-                if new_cap > REGRID_CAPACITY and regrid_at != done:
-                    regridded = self._regrid_scene(sc_prev)
-                if regridded is not None:
-                    regrid_at = done
-                    grow_tries = 0
-                    template = regridded
-                else:
-                    template = grow_capacity(sc_prev, new_cap)
-                self.grid = template.grid
-                self.scene = template
+                template, grow_tries, regrid_at = self._overflow_retry(
+                    sc_prev, grow_tries, regrid_at, done)
                 step, carry = self._build(
                     template, prev_carry[1] if ttm_on else None,
                     self.step_count + done)
                 continue
+            self.block_seconds.append((b, time.perf_counter() - t0))
             done += b
             gstep = self.step_count + done
-            stop = os.path.exists(self._path("stop"))
-            force_write = os.path.exists(self._path("write"))
-            walltime_up = (cfg.maxwalltime > 0 and
-                           time.time() - self.start_time > cfg.maxwalltime)
-            if not (any(_iv_due(gstep, i) for i in intervals) or stop
-                    or force_write or walltime_up or done >= steps):
+            control = self._control_files()
+            if not (any(_iv_due(gstep, i) for i in intervals)
+                    or any(control) or done >= steps):
                 continue
             state = self.observe(carry[0], template, gstep,
                                  carry[1] if ttm_on else None)
@@ -503,19 +575,181 @@ class Simulation:
                     write_ttm(self._path(
                         f"{cfg.outfiles}.{gstep // cfg.ttm_int}.ttm"),
                         state.ttm_grid)
-                if force_write:
-                    os.remove(self._path("write"))
-                    self.write_checkpoint(state, gstep)
-                if stop:
-                    os.remove(self._path("stop"))
-                if stop or walltime_up:
-                    self.write_checkpoint(state, gstep)
+                if self._obey_control(state, gstep, *control):
                     break
         if state is None:
             state = self.observe(carry[0], template, self.step_count + done,
                                  carry[1] if ttm_on else None)
         self.scene = state.scene
         self.step_count = state.step
+        self.timers.stop("total")
+        n = max(n_atoms(state.scene), 1)
+        print(self.timers.report(n_atoms=n, n_steps=max(done, 1)),
+              flush=True)
+        return state
+
+    def _control_files(self):
+        """The graceful-stop machinery (check_stop/check_write/
+        check_walltime, imd_main_3d.c:1938-1992): (a ``stop`` file, a
+        ``write`` file, maxwalltime passed)."""
+        cfg = self.cfg
+        return (os.path.exists(self._path("stop")),
+                os.path.exists(self._path("write")),
+                cfg.maxwalltime > 0
+                and time.time() - self.start_time > cfg.maxwalltime)
+
+    def _obey_control(self, state: SimState, gstep: int, stop: bool,
+                      force_write: bool, walltime_up: bool) -> bool:
+        """A ``write`` file checkpoints now, a ``stop`` file or the
+        walltime checkpoints and ends the run (True); the files are
+        removed."""
+        if force_write:
+            os.remove(self._path("write"))
+            self.write_checkpoint(state, gstep)
+        if stop:
+            os.remove(self._path("stop"))
+        if stop or walltime_up:
+            self.write_checkpoint(state, gstep)
+            return True
+        return False
+
+    def _overflow_retry(self, sc_prev: Scene, grow_tries: int,
+                        regrid_at: int, done: int):
+        """A rebin of the last block overflowed the cell capacity: grow the
+        slot axis of the pre-block scene ``sc_prev`` (alloc_cell,
+        imd_alloc.c:551), or past ``REGRID_CAPACITY`` re-grid it, so that
+        the caller retries the block.  Returns (scene, grow_tries,
+        regrid_at) and makes the scene the driver's."""
+        grow_tries += 1
+        if grow_tries > 6:
+            raise RuntimeError(
+                f"cell capacity overflow persists after {grow_tries - 1} "
+                f"growths (capacity {self.grid.capacity})")
+        old = self.grid.capacity
+        new_cap = ((old + 8 + 7) // 8) * 8
+        print(f"# cell overflow: growing capacity {old} -> {new_cap} and "
+              f"retrying the block", flush=True)
+        regridded = None
+        if new_cap > REGRID_CAPACITY and regrid_at != done:
+            regridded = self._regrid_scene(sc_prev)
+        if regridded is not None:
+            regrid_at = done
+            grow_tries = 0
+            template = regridded
+        else:
+            template = grow_capacity(sc_prev, new_cap)
+        self.grid = template.grid
+        self.scene = template
+        return template, grow_tries, regrid_at
+
+    # -- the general step (pair potentials, ensemble nve) ---------------
+    def make_step_fn(self):
+        """The general step as imd_tpu's make_step_fn runs it for nve
+        without the TTM (simulation.py:1327-1371, 1505-1507): the skin
+        check (one host read), the rebin when it fires, B6, the NVE
+        leapfrog.  Returns step(StepState) -> StepState."""
+        cfg = self.cfg
+        params = integrate.IntegratorParams(
+            timestep=cfg.timestep, viscous_friction=cfg.viscous_friction)
+        timer, counters, pot = self.timer, self.counters, self.pair_run
+        views = make_neighbor_views(self.grid, self.dtype, self.device)
+
+        def step_fn(st: StepState) -> StepState:
+            scene = st.scene
+            with timer("skin"):
+                do_it = bool(needs_rebin(scene, scene.grid.skin))
+            counters.host_syncs += 1
+            if do_it:
+                with timer("rebin"):
+                    scene = rebin(scene)
+                counters.rebins += 1
+            res = compute_pair_forces_pallas(scene, pot, timer=timer,
+                                             views=views)
+            scene = scene.replace(force=res.force, epot=res.epot)
+            with timer("integrate"):
+                scene, stats = integrate.nve(scene, params)
+            counters.steps += 1
+            return StepState(scene=scene, step=st.step + 1,
+                             epot_total=res.epot.to(torch.float64).sum(),
+                             virial=res.virial, presstens=res.presstens,
+                             stats=stats, nbl_count=st.nbl_count + do_it)
+
+        return step_fn
+
+    def init_state(self) -> StepState:
+        """The general step's start (simulation.py:1670, no TTM)."""
+        z = torch.zeros((), dtype=torch.float64, device=self.device)
+        return StepState(
+            scene=self.scene, step=self.step_count, epot_total=z, virial=z,
+            presstens=torch.zeros(6, dtype=torch.float64, device=self.device),
+            stats=integrate.StepStats(tot_kin_energy=z, fnorm=z, pnorm=z,
+                                      pxf=z, ekin_new=z))
+
+    def _sim_state(self, st: StepState) -> SimState:
+        """The output record of a general-step carry: one host read."""
+        vals = torch.cat([st.epot_total[None], st.stats.tot_kin_energy[None],
+                          st.virial[None], st.presstens]).tolist()
+        return SimState(scene=st.scene, step=st.step, epot_total=vals[0],
+                        ekin=vals[1], virial=vals[2],
+                        presstens=np.asarray(vals[3:]), rho=None)
+
+    def run_general(self, steps: Optional[int] = None) -> SimState:
+        """The general loop with periodic I/O (simulation.py:2033-2461 as
+        far as nve without the TTM reaches): blocks that end on the next
+        ``eng_int``/``checkpt_int`` step, .eng from the step's sums,
+        .chkpt/.itr, the stop/write files and maxwalltime; a block whose
+        rebin overflowed the capacity is retried from its start after
+        ``_overflow_retry``."""
+        cfg = self.cfg
+        steps = self._steps_to_run(steps)
+        intervals = [i for i in (cfg.eng_int, cfg.checkpt_int) if i > 0]
+        block = max(1, min([steps] + intervals) if intervals
+                    else min(steps, 100))
+        step_fn = self.make_step_fn()
+        st = self.init_state()
+        self.timers.start("total")
+        nactive = integrate.count_active_dof(self.scene)
+        if cfg.eng_int > 0 and self.eng is None:
+            self.eng = EngWriter(self._path(cfg.outfiles + ".eng"),
+                                 append=cfg.simulation_phase > 1)
+        done = 0
+        state = None
+        grow_tries = 0
+        regrid_at = -1
+        while done < steps:
+            prev = st
+            b = _clamp_block(min(block, steps - done), st.step, intervals)
+            t0 = time.perf_counter()
+            with self.timers.section("main"):
+                for _ in range(b):
+                    st = step_fn(st)
+                _sync(self.device)
+            if int(st.scene.overflow) > 0:
+                template, grow_tries, regrid_at = self._overflow_retry(
+                    prev.scene, grow_tries, regrid_at, done)
+                st = dataclasses.replace(prev, scene=template)
+                step_fn = self.make_step_fn()
+                continue
+            self.block_seconds.append((b, time.perf_counter() - t0))
+            done += b
+            gstep = st.step
+            control = self._control_files()
+            if not (any(_iv_due(gstep, i) for i in intervals)
+                    or any(control) or done >= steps):
+                continue
+            state = self._sim_state(st)
+            with self.timers.section("io"):
+                if _iv_due(gstep, cfg.eng_int):
+                    self._write_eng(state, nactive)
+                if _iv_due(gstep, cfg.checkpt_int):
+                    self.write_checkpoint(state, gstep // cfg.checkpt_int)
+                if self._obey_control(state, gstep, *control):
+                    break
+        if state is None:
+            state = self._sim_state(st)
+        self.scene = state.scene
+        self.step_count = state.step
+        self.nbl_count = st.nbl_count
         self.timers.stop("total")
         n = max(n_atoms(state.scene), 1)
         print(self.timers.report(n_atoms=n, n_steps=max(done, 1)),
@@ -608,7 +842,7 @@ class Simulation:
         mass = flat["mass"][m]
         columns = "number type mass x y z vx vy vz Epot".split()
         data = flat["epot"][m][:, None]
-        if not self.cfg.norhoh:
+        if state.rho is not None and not self.cfg.norhoh:
             rho = state.rho.reshape(-1).detach().cpu().numpy()[m]
             data = np.concatenate([data, rho[:, None]], axis=1)
             columns.append("eam_rho")

@@ -406,7 +406,9 @@ def test_stop_file_ends_the_run_with_a_checkpoint(rundir, tmp_path):
 UNPORTED = {
     "ntypes": ("ntypes 5\nmasses 26.98 26.98 26.98 26.98 26.98\n", "A9"),
     "asympot": ("ntypes 2\nmasses 26.98 26.98\nasympot 1\n", "A9"),
-    "potfile": ("potfile pair.pt\n", "A9"),
+    "pair_ntypes2": ("ntypes 2\nmasses 26.98 26.98\nlj_epsilon 0.35 0.3 "
+                     "0.4\nlj_sigma 2.62 2.5 2.7\n", "A9b"),
+    "pair_ttm": ("ensemble ttm\nlj_epsilon 0.35\nlj_sigma 2.62\n", "A9b"),
     "stiweb": ("stiweb_a 1.0\n", "A9"),
     "ensemble_nvt": ("ensemble nvt\n", "A9"),
     "shock": ("shock_mode 1\n", "A9"),
