@@ -7,7 +7,8 @@ and no JAX.  Phases, each of which fails the run loudly:
 
 1. build the CUDA kernels of imd_tpu_torch/csrc into imd_tpu_torch/_build
    (one nvcc per source in parallel; printing nvcc's time and ptxas'
-   registers, shared memory, spills);
+   registers, shared memory, spills per kernel; any spill of the eight
+   full-stencil instantiations fails the run);
 2. build the flagship configuration (imd_tpu_torch/flagship.py: bench.py's
    default TTM-coupled fcc Al EAM run, 1,000,188 atoms, float32), and its
    two-species twin (``ntypes=2``: types index % 2, tiled tables);
@@ -23,10 +24,17 @@ and no JAX.  Phases, each of which fails the run loudly:
    jittered state with two species and genuinely different table columns
    (densities that depend on source and host) and on the (3,2,2) grid with
    four; K6/K7 with tiled (identical) columns against K1/K2 on the same
-   state; K3 compact exactly, through a whole migration rebin of a
-   jittered copy against the same rebin on the CPU; the force kernels
-   against the all-pairs float64 oracle on a small input, with one and
-   with two species; and time each kernel beside its plain version;
+   state; K1/K2/K4/K5 and K6-K9 (two species) in a capacity sweep at cap
+   17, 24, 31, 40 and the limit 128 (17 and 31 with padding lanes in the
+   block's last warp) on a 3 x 4 x 11 grid with an open x face,
+   every slot live and one cell squeezed so that its lists fill, to the
+   same tolerances, and every one of the eight wrappers must raise
+   ValueError at cap 129 before launching; each of K1/K2/K4/K5/K6-K9 gives
+   the same bits twice; K3 compact exactly, through a whole migration
+   rebin of a jittered copy against the same rebin on the CPU; the force
+   kernels against the all-pairs float64 oracle on a small input, with
+   one and with two species; and time each kernel beside its plain
+   version;
 4. drive the flagship main path from a warmed start (0.3 eV, so that the
    skin check fires and the rebin runs): 3 warm-up steps, then 3 x 20
    timed steps, with the launch counters set to 0 just before and read
@@ -93,9 +101,11 @@ Prints one JSON line each for the four main paths (one and two species,
 driver run, one
 {"kernels": [...]} line (with each kernel's bound: the larger of its FLOPs
 over the float32 peak and its bytes over the memory rate, counted from
-this run's inputs, and its share, bound / ms; B8's rows carry K4/K5's
-times), the card's name and power limit, and last {"ok": true, "device":
-{...}}.
+this run's inputs, and its share, bound / ms; ptxas' registers, spill
+bytes and static shared memory; for the full-stencil rows the launch tile
+and its dynamic shared memory at the flagship's shapes; B8's rows carry
+K4/K5's times), the card's name and power limit, and last {"ok": true,
+"device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -583,7 +593,7 @@ def main() -> int:
     from imd_tpu_torch.ops import fused_step, rebin_cl
     from imd_tpu_torch.ops.forces_fast import _roll_cells, _to_cl
     from imd_tpu_torch.ops.fused_step import scene_to_cl
-    from imd_tpu_torch.ops.geometry import (Box, choose_grid,
+    from imd_tpu_torch.ops.geometry import (Box, CellGrid, choose_grid,
                                             measured_capacity, with_capacity)
     from imd_tpu_torch.models.potential import (EAMPotential,
                                                 eam_to_fastpoly, tile_columns)
@@ -608,6 +618,12 @@ def main() -> int:
         if line.strip():
             print("nvcc:", line.strip())
     kernels.lib()
+    usage = kernels.ptxas_usage(info.log)
+    for row in (*kernels.WIN_FLAGS, *kernels.OTHER_SYMBOLS):
+        print(f"ptxas {row}: {usage.get(row)}")
+    for row in kernels.WIN_FLAGS:
+        check(row in usage and usage[row]["spill_bytes"] == 0,
+              f"{row}: -Xptxas -v shows no spills ({usage.get(row)})")
 
     # ---- 2. the flagship configuration --------------------------------
     t0 = time.perf_counter()
@@ -731,6 +747,9 @@ def main() -> int:
         rho_jump, _, grad_jump = jumps(eam)
         live = int(alive.sum())
         rho_k, nn_k = ops["rho"](xi, alive)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (rho_k, nn_k), ops["rho"](xi, alive))),
+            f"{k1} gives the same bits twice ({label})")
         rho_p, nn_p = ops["rho_p"](xi, alive)
         agree = alive & (nn_k == nn_p)
         flips = alive & ~agree
@@ -752,6 +771,8 @@ def main() -> int:
 
         dF = 0.5 * ops["embed"](rho_p)[1] * alive.to(xi.dtype)
         F_k = ops["force"](xi, alive, dF)
+        check(torch.equal(F_k, ops["force"](xi, alive, dF)),
+              f"{k2} gives the same bits twice ({label})")
         F_p = ops["force_p"](xi, alive, dF)
         f_max = float(F_p.abs().max())
         dFn = (F_k - F_p).abs().amax(1)
@@ -791,6 +812,9 @@ def main() -> int:
         rho_jump, phi_jump, grad_jump = jumps(eam)
         live = int(alive.sum())
         rho_k, nn_k, e_k = ops["rho_e"](xi, alive)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (rho_k, nn_k, e_k), ops["rho_e"](xi, alive))),
+            f"{k4} gives the same bits twice ({label})")
         rho_p, nn_p, e_p = ops["rho_e_p"](xi, alive)
         agree = alive & (nn_k == nn_p)
         flips = alive & ~agree
@@ -825,6 +849,9 @@ def main() -> int:
         flips = alive & ~agree
         dnn = (nn_k1 - nn_p).abs()
         F_k, S_k = ops["force_s"](xi, alive, dF)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (F_k, S_k), ops["force_s"](xi, alive, dF))),
+            f"{k5} gives the same bits twice ({label})")
         F_p, S_p = ops["force_s_p"](xi, alive, dF)
         f_max = float(F_p.abs().max())
         f_rel = float((F_k - F_p).abs().amax(1)[agree].max()) / f_max
@@ -855,15 +882,18 @@ def main() -> int:
 
     errs = dict.fromkeys(FLOPS_PER_PAIR, 0.0)   # max abs error per kernel
 
-    def check_all(xi, alive, eam, grid, label, typ=None, nt=1):
+    def check_all(xi, alive, eam, grid, label, typ=None, nt=1,
+                  record=True):
         """The R/F passes and the observables pair on one input; notes the
-        errors under the kernels' names and returns (dF, nn)."""
+        errors under the kernels' names (unless not ``record``) and
+        returns (dF, nn)."""
         rho_e, f_e, dF = check_eam(xi, alive, eam, grid, label, typ, nt)
         k4_e, k5_e, nn = check_b4(xi, alive, eam, grid, dF, label, typ, nt)
         for name, e in (("eam_rho", rho_e), ("eam_force", f_e),
                         ("eam_rho_e", k4_e), ("eam_force_s", k5_e)):
             name = name if typ is None else MT_OF[name]
-            errs[name] = max(errs[name], e)
+            if record:
+                errs[name] = max(errs[name], e)
         return dF, nn
 
     xi = jittered(0.1)
@@ -909,6 +939,72 @@ def main() -> int:
     eam_s4 = eam_to_fastpoly(flagship.eam_tables(4, SCALES4), deg=12)
     check_all(tcl4.xi, tcl4.alive, eam_s4, tgrid, tlabel + ", ntypes 4",
               tcl4.typ, 4)
+
+    # the capacity sweep: both templates with all four flag pairs at cap
+    # 17, 24, 31, 40 and the limit (17 and 31 leave padding lanes in the
+    # block's last warp), on a 3 x 4 x 11 grid of 6 A cells with an open
+    # x face (several tiles along y and z, the last ones partial), every
+    # slot live at uniform random positions, and one cell's atoms squeezed
+    # into 0.4 A so that its lists fill in one cell (up to cap - 1 of the
+    # cap + WIN_LIST_SLACK entries); the same tolerances
+    sdims, edge = (3, 4, 11), 6.0
+    sbox = Box.create([sdims[0] * edge, 0, 0], [0, sdims[1] * edge, 0],
+                      [0, 0, sdims[2] * edge], pbc=(0, 1, 1))
+    ncs = sdims[0] * sdims[1] * sdims[2]
+    cidx = torch.arange(ncs, device="cuda")
+    ijk = torch.stack([cidx // (sdims[1] * sdims[2]),
+                       (cidx // sdims[2]) % sdims[1], cidx % sdims[2]])
+    squeezed = (1 * sdims[1] + 2) * sdims[2] + 5
+    for cap in (17, 24, 31, 40, kernels.WIN_MAX_CAP):
+        sgrid = CellGrid(box=sbox, dims=sdims, capacity=cap,
+                         cutoff=flagship.CUTOFF, skin=flagship.SKIN)
+        u = torch.rand((cap, 3, ncs), generator=gen, device="cuda")
+        sxi = (ijk[None] + u) * edge
+        sxi[:, :, squeezed] = ijk[:, squeezed] * edge + 0.2 + 0.4 * u[
+            :, :, squeezed]
+        sxi = sxi.float().contiguous()
+        salive = torch.ones((cap, ncs), dtype=torch.bool, device="cuda")
+        t = win.win_tile(cap, sdims, 1)
+        slabel = (f"sweep cap {cap} (tile {t.tx} x {t.ty} x {t.tz} cells, "
+                  f"{t.threads} threads, {t.smem} B)")
+        check_all(sxi, salive, eam, sgrid, slabel, record=False)
+        styp = torch.randint(0, 2, (cap, ncs), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        check_all(sxi, salive, eam_s2, sgrid, slabel + ", ntypes 2", styp, 2,
+                  record=False)
+    # one slot above the limit: every wrapper raises before any launch
+    over = kernels.WIN_MAX_CAP + 1
+    ogrid = CellGrid(box=sbox, dims=sdims, capacity=over,
+                     cutoff=flagship.CUTOFF, skin=flagship.SKIN)
+    oxi = torch.zeros((over, 3, ncs), device="cuda")
+    oal = torch.ones((over, ncs), dtype=torch.bool, device="cuda")
+    otyp = torch.zeros((over, ncs), dtype=torch.int32, device="cuda")
+    odF = torch.zeros((over, ncs), device="cuda")
+    before = dict(kernels.LAUNCHES)
+    for name, call in (
+            ("eam_rho", lambda: win.eam_rho(oxi, oal, eam, ogrid)),
+            ("eam_force", lambda: win.eam_force(oxi, oal, odF, eam, ogrid)),
+            ("eam_rho_e", lambda: b4.eam_rho_e(oxi, oal, eam, ogrid)),
+            ("eam_force_s",
+             lambda: b4.eam_force_s(oxi, oal, odF, eam, ogrid)),
+            ("eam_rho_mt",
+             lambda: win.eam_rho_mt(oxi, otyp, eam_s2, ogrid, 2)),
+            ("eam_force_mt",
+             lambda: win.eam_force_mt(oxi, otyp, odF, eam_s2, ogrid, 2)),
+            ("eam_rho_e_mt",
+             lambda: b4.eam_rho_e_mt(oxi, otyp, eam_s2, ogrid, 2)),
+            ("eam_force_s_mt",
+             lambda: b4.eam_force_s_mt(oxi, otyp, odF, eam_s2, ogrid, 2))):
+        try:
+            call()
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"{name} at capacity {over} must raise ValueError")
+    check(kernels.LAUNCHES == before, "no launch above the capacity limit")
+    print(f"capacity {over} (the limit + 1): all eight wrappers raise "
+          "ValueError before launching")
+    del sxi, salive, styp, oxi, oal, otyp, odF
 
     # ---- B7: the rolled-view split, K10 and K11 ----------------------
     def check_half(xi, alive, eam, grid, label):
@@ -1515,6 +1611,14 @@ def main() -> int:
              "imd_tpu/ops/forces_pallas.py:1299"),
             ("eam_force_s_b8", "eam_win.cu",
              "imd_tpu/ops/forces_pallas.py:1363")]
+    # the full-stencil kernels' tile at the main paths' shapes: the
+    # flagship's grid, one species or two
+    tiles = {}
+    for row, (_, _, mt) in kernels.WIN_FLAGS.items():
+        t = win.win_tile(grid.capacity, grid.dims, 2 if mt else 1)
+        tiles[row] = {"smem_dynamic_bytes": t.smem, "tile": {
+            "cells": [t.tx, t.ty, t.tz], "threads": t.threads,
+            "list_len": t.list_len}}
     launches["eam_rho_e_b8"] = b8_launches["eam_rho_e"]
     launches["eam_force_s_b8"] = b8_launches["eam_force_s"]
     out = []
@@ -1531,7 +1635,8 @@ def main() -> int:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": None, "share": max(t_ops, t_bytes) / ms[kern],
-            "flops": flops, "bytes": nbytes})
+            "flops": flops, "bytes": nbytes, **usage.get(kern, {}),
+            **tiles.get(kern, {})})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,23 @@ struct Poly {
     float b0;
 };
 
+// Launch tile of the full-stencil kernels (eam_win.cu), chosen on the host
+// (ops/forces_win.py:win_tile) and checked by the C entries (tile_ok); the
+// half-stencil kernels leave it at zero.  Byte offsets are into the block's
+// dynamic shared memory.
+struct WinTile {
+    int tx, ty, tz;   // cells per block along x, y, z
+    int ntx, nty, ntz;  // blocks along x, y, z
+    int threads;      // block size, a multiple of 32
+    int list_len;     // entries of each thread's pair list
+    int pos_off;      // [rows][cap][tz + 2] float4 slots of the halo tile,
+                      // rows = (tx + 2) * (ty + 2)
+    int tab_off;      // multi-type coefficient rows
+    int typ_off;      // [rows][cap][tz + 2] int8 types (multi-type)
+    int list_off;     // [list_len][threads] uint16 pair lists
+    int smem;         // bytes in all
+};
+
 struct EamParams {
     Poly rho_v;       // rho(r^2)
     Poly pair_g;      // 2 dphi/dr^2
@@ -27,6 +44,7 @@ struct EamParams {
     float h[9];       // box rows h[3*row + col]
     int pbc[3];
     int gx, gy, gz, cap;
+    WinTile tile;
 };
 
 __device__ __forceinline__ float poly_eval(const Poly& p, float x) {

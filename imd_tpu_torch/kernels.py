@@ -22,6 +22,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,9 +41,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 NPOLY = 16            # padded Horner length baked per polynomial (deg <= 15)
-MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: slots (the stencil family),
-                      # candidates (K3)
+MAX_GRID_Y = 65535    # CUDA's gridDim.y limit: candidates (K3)
 MAX_NT = 4            # species the multi-type kernels take (eam_win.cu)
+# the full-stencil kernels (eam_win.cu): their Horners stop at degree
+# WIN_DEG (the derivatives at WIN_DEG - 1), and a block stages the halo
+# tile of at most WIN_MAX_TXY x WIN_MAX_TXY x WIN_MAX_TZ cells with
+# WIN_MAX_THREADS threads in at most WIN_MAX_SMEM bytes of shared memory
+# (the H100's 227 KB), with a pair list of cap + WIN_LIST_SLACK entries
+# per thread
+WIN_DEG = 12
+WIN_MAX_CAP = 128
+WIN_MAX_TXY = 2
+WIN_MAX_TZ = 8
+WIN_MAX_THREADS = 512
+WIN_MAX_SMEM = 232448
+WIN_LIST_SLACK = 64
 HALF_MAX_CAP = 128    # capacity the half-stencil kernels take: one cell's
                       # [cap][cap] scratches in shared memory (eam_half.cu)
 # order of the tables in the multi-type coefficient buffer
@@ -62,18 +75,28 @@ def reset_launches() -> None:
 
 class Poly(ctypes.Structure):
     """Horner polynomial in t = clip(x*a - b0, -1, 1), coefficients c[k]
-    of t^k (zero-padded to NPOLY).  Mirrors ``struct Poly`` in eam_win.cu."""
+    of t^k (zero-padded to NPOLY).  Mirrors ``struct Poly`` in
+    eam_common.cuh."""
     _fields_ = [("c", ctypes.c_float * NPOLY), ("a", ctypes.c_float),
                 ("b0", ctypes.c_float)]
 
 
+class WinTile(ctypes.Structure):
+    """Mirrors ``struct WinTile`` in eam_common.cuh: the full-stencil
+    kernels' launch tile (ops/forces_win.py:win_tile)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "tx", "ty", "tz", "ntx", "nty", "ntz", "threads", "list_len",
+        "pos_off", "tab_off", "typ_off", "list_off", "smem")]
+
+
 class EamParams(ctypes.Structure):
-    """Mirrors ``struct EamParams`` in eam_win.cu."""
+    """Mirrors ``struct EamParams`` in eam_common.cuh."""
     _fields_ = [("rho_v", Poly), ("pair_g", Poly), ("rho_g", Poly),
                 ("pair_v", Poly), ("rcut2", ctypes.c_float),
                 ("h", ctypes.c_float * 9), ("pbc", ctypes.c_int * 3),
                 ("gx", ctypes.c_int), ("gy", ctypes.c_int),
-                ("gz", ctypes.c_int), ("cap", ctypes.c_int)]
+                ("gz", ctypes.c_int), ("cap", ctypes.c_int),
+                ("tile", WinTile)]
 
 
 @dataclasses.dataclass
@@ -81,6 +104,7 @@ class BuildInfo:
     path: Path
     seconds: float      # nvcc wall time (0 when an existing build was reused)
     log: str            # nvcc's output, including -Xptxas -v resource usage
+                        # (kept beside the library, so a reused build has it)
     reused: bool
 
 
@@ -105,8 +129,10 @@ def build() -> BuildInfo:
     """Compile csrc/*.cu into _build/ unless this exact build exists: one
     nvcc per source in parallel, then one link."""
     so = BUILD_DIR / f"libimd_tpu_torch_{_digest()}.so"
+    log_file = so.with_suffix(".log")
     if so.exists():
-        return BuildInfo(so, 0.0, "", True)
+        log = log_file.read_text() if log_file.exists() else ""
+        return BuildInfo(so, 0.0, log, True)
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = _nvcc()
@@ -133,6 +159,7 @@ def build() -> BuildInfo:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     seconds = time.perf_counter() - t0
+    log_file.write_text("".join(log))
     os.replace(tmp, so)
     for o in objs:
         o.unlink()
@@ -186,6 +213,55 @@ def lib() -> ctypes.CDLL:
             fn.restype = ci
         _lib = cdll
     return _lib
+
+
+# the CUDA symbol of each kernel row: eam_win.cu's templates by their
+# <ENERGY|STRESS, MT> flags, the others by name
+WIN_FLAGS = {"eam_rho": ("rho", 0, 0), "eam_force": ("force", 0, 0),
+             "eam_rho_e": ("rho", 1, 0), "eam_force_s": ("force", 1, 0),
+             "eam_rho_mt": ("rho", 0, 1), "eam_force_mt": ("force", 0, 1),
+             "eam_rho_e_mt": ("rho", 1, 1),
+             "eam_force_s_mt": ("force", 1, 1)}
+OTHER_SYMBOLS = {"compact": "compact_kernel",
+                 "eam_rho_half": "eam_rho_half_kernel",
+                 "eam_force_half": "eam_force_half_kernel",
+                 "pair_half": "pair_half_kernel"}
+
+
+def ptxas_usage(log: str) -> dict:
+    """Per kernel row: registers, spill bytes (stores + loads) and static
+    shared memory from nvcc's -Xptxas -v output."""
+    entries, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            cur = entries.get(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static_bytes"] = int(m.group(1)) if m else 0
+    usage = {}
+    for sym, u in entries.items():
+        m = re.search(r"eam_(rho|force)_kernelILb([01])ELb([01])E", sym)
+        for row, want in WIN_FLAGS.items():
+            if m and (m.group(1), int(m.group(2)), int(m.group(3))) == want:
+                usage[row] = u
+        for row, name in OTHER_SYMBOLS.items():
+            if re.search(rf"\d{name}\w*$", sym) and "ILb" not in sym:
+                usage[row] = u
+    return usage
 
 
 def check(err: int, name: str) -> None:

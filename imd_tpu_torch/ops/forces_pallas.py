@@ -177,7 +177,7 @@ def eam_rho_e(xi, alive, eam, grid):
     e = torch.empty_like(rho)
     err = kernels.lib().imd_eam_rho_e(
         xi.data_ptr(), alive.data_ptr(), rho.data_ptr(), nn.data_ptr(),
-        e.data_ptr(), _params_for(eam, grid, cap), nc,
+        e.data_ptr(), _params_for(eam, grid, cap, 1), nc,
         kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_rho_e")
     kernels.LAUNCHES["eam_rho_e"] += 1
@@ -198,7 +198,7 @@ def eam_force_s(xi, alive, dF, eam, grid):
     S = torch.empty((6, cap, nc), dtype=xi.dtype, device=xi.device)
     err = kernels.lib().imd_eam_force_s(
         xi.data_ptr(), alive.data_ptr(), dF.data_ptr(), F.data_ptr(),
-        S.data_ptr(), _params_for(eam, grid, cap), nc,
+        S.data_ptr(), _params_for(eam, grid, cap, 1), nc,
         kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_force_s")
     kernels.LAUNCHES["eam_force_s"] += 1
@@ -221,7 +221,8 @@ def eam_rho_e_mt(xi, typ, eam, grid, ntypes):
     err = kernels.lib().imd_eam_rho_e_mt(
         xi.data_ptr(), typ.data_ptr(), _mt_table(eam, xi.device).data_ptr(),
         ntypes, rho.data_ptr(), nn.data_ptr(), e.data_ptr(),
-        _params_for(None, grid, cap), nc, kernels.stream_ptr(xi.device))
+        _params_for(None, grid, cap, ntypes), nc,
+        kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_rho_e_mt")
     kernels.LAUNCHES["eam_rho_e_mt"] += 1
     return rho, nn, e
@@ -243,7 +244,8 @@ def eam_force_s_mt(xi, typ, dF, eam, grid, ntypes):
     err = kernels.lib().imd_eam_force_s_mt(
         xi.data_ptr(), typ.data_ptr(), _mt_table(eam, xi.device).data_ptr(),
         ntypes, dF.data_ptr(), F.data_ptr(), S.data_ptr(),
-        _params_for(None, grid, cap), nc, kernels.stream_ptr(xi.device))
+        _params_for(None, grid, cap, ntypes), nc,
+        kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_force_s_mt")
     kernels.LAUNCHES["eam_force_s_mt"] += 1
     return F, S

@@ -234,11 +234,74 @@ def embed_mt(eam, rho, typ, ntypes):
     return v, g
 
 
+def _tile_layout(t, cap, nt, dims, list_len=None):
+    """WinTile of ``t`` = (tx, ty, tz) cells a block on a grid of ``dims``,
+    one thread per (cell, slot) in whole warps, with its shared-memory
+    layout: the (tx + 2) (ty + 2) (tz + 2) source cells and their slots as
+    float4, with ``nt`` > 1 the two coefficient tables and the int8 types,
+    then the uint16 lists of ``list_len`` (cap + WIN_LIST_SLACK) entries."""
+    tx, ty, tz = t
+    list_len = list_len or cap + kernels.WIN_LIST_SLACK
+    threads = -(-tx * ty * tz * cap // 32) * 32
+    cells = (tx + 2) * (ty + 2) * (tz + 2)
+    nslots = cells * cap
+    pos_off = 16 * cells
+    end = pos_off + 16 * nslots
+    tab_off = typ_off = end
+    if nt > 1:
+        typ_off = tab_off + 2 * nt * nt * (kernels.NPOLY + 2) * 4
+        end = typ_off + nslots
+    list_off = -(-end // 4) * 4
+    return kernels.WinTile(
+        tx=tx, ty=ty, tz=tz, ntx=-(-dims[0] // tx), nty=-(-dims[1] // ty),
+        ntz=-(-dims[2] // tz), threads=threads, list_len=list_len,
+        pos_off=pos_off, tab_off=tab_off, typ_off=typ_off,
+        list_off=list_off, smem=list_off + 2 * threads * list_len)
+
+
+def win_tile(cap: int, dims, nt: int = 1):
+    """Launch tile of the full-stencil kernels (csrc/eam_win.cu) at
+    capacity ``cap`` on a grid of ``dims`` cells, for ``nt`` species (1:
+    K1/K2/K4/K5, 2..4: K6-K9).
+
+    A block takes tx x ty x tz cells, one thread per (cell, slot) in whole
+    warps: tx = ty = 2 (1 along an axis of one cell), or 1 x 1 where no
+    2 x 2 run fits WIN_MAX_THREADS and WIN_MAX_SMEM; tz covers the grid's
+    z in as few blocks as a fitting run of at most WIN_MAX_TZ cells
+    allows, and is the shortest run that does (the least overhang past the
+    grid).  At the flagship (42^3, cap 16) this is 2 x 2 x 7 cells, 448
+    threads."""
+    if not 1 <= cap <= kernels.WIN_MAX_CAP:
+        raise ValueError(f"capacity {cap} outside the full-stencil "
+                         f"kernels' 1..{kernels.WIN_MAX_CAP}")
+    for side in (kernels.WIN_MAX_TXY, 1):
+        txy = (min(side, dims[0]), min(side, dims[1]))
+        fits = [tz for tz in range(1, min(kernels.WIN_MAX_TZ, dims[2]) + 1)
+                if txy[0] * txy[1] * tz * cap <= kernels.WIN_MAX_THREADS
+                and _tile_layout((*txy, tz), cap, nt, dims).smem
+                <= kernels.WIN_MAX_SMEM]
+        if fits:
+            nb = -(-dims[2] // max(fits))
+            return _tile_layout((*txy, -(-dims[2] // nb)), cap, nt, dims)
+    raise AssertionError(f"no tile fits capacity {cap}")
+
+
+def _check_win_degree(host) -> None:
+    """The full-stencil kernels' Horners stop at degree WIN_DEG."""
+    for c, _, _ in host:
+        deg = max((k for k, v in enumerate(c) if v != 0.0), default=0)
+        if deg > kernels.WIN_DEG:
+            raise ValueError(f"polynomial degree {deg} exceeds the "
+                             f"full-stencil kernels' {kernels.WIN_DEG}")
+
+
 @functools.lru_cache(maxsize=16)
-def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
+def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap, nt=0):
     """ctypes EamParams from the baked host tuples (all hashable);
     ``rho_h``/``pair_h`` None leaves their polynomials empty (the multi-type
-    kernels read theirs from ``_mt_table``)."""
+    kernels read theirs from ``_mt_table``); ``nt`` > 0 fills the
+    full-stencil kernels' tile for ``nt`` species and holds the fits to
+    their degree."""
     p = kernels.EamParams()
 
     def fill(dst, c, b, e):
@@ -264,6 +327,9 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap):
         p.pbc[k] = pbc[k]
     p.gx, p.gy, p.gz = dims
     p.cap = cap
+    if nt:
+        _check_win_degree(h for h in (rho_h, pair_h) if h is not None)
+        p.tile = win_tile(cap, dims, nt)
     return p
 
 
@@ -280,9 +346,11 @@ def _check_cuda_inputs(xi, alive, grid, alive_dtype=torch.bool):
     if nc != grid.n_cells:
         raise ValueError(f"xi has {nc} cells, grid {grid.dims} has "
                          f"{grid.n_cells}")
-    if cap > kernels.MAX_GRID_Y:
-        raise ValueError(f"capacity {cap} exceeds the kernels' limit of "
-                         f"{kernels.MAX_GRID_Y} slots (gridDim.y)")
+    if cap > kernels.WIN_MAX_CAP:
+        raise ValueError(f"capacity {cap} exceeds the full-stencil "
+                         f"kernels' limit of {kernels.WIN_MAX_CAP} slots "
+                         "(a block's halo tile and pair lists in shared "
+                         "memory)")
 
 
 def _check_cuda_dF(dF, xi, name):
@@ -301,14 +369,16 @@ def _pair_params(pot, grid, cap):
                        tuple(grid.box.pbc), tuple(grid.dims), int(cap))
 
 
-def _params_for(eam, grid, cap):
+def _params_for(eam, grid, cap, nt=0):
     """EamParams of a single-species set; of the geometry alone for
-    ``eam`` None."""
+    ``eam`` None.  ``nt`` > 0 adds the full-stencil kernels' tile for
+    ``nt`` species (and holds the fits to their degree)."""
     h = tuple(float(v) for v in grid.box.h.reshape(-1))
     rho_h, pair_h = (None, None) if eam is None else \
         (_poly_consts(eam.rho), _poly_consts(eam.pair))
     return _eam_params(rho_h, pair_h, float(grid.cutoff) ** 2, h,
-                       tuple(grid.box.pbc), tuple(grid.dims), int(cap))
+                       tuple(grid.box.pbc), tuple(grid.dims), int(cap),
+                       int(nt))
 
 
 @functools.lru_cache(maxsize=8)
@@ -316,6 +386,7 @@ def _mt_table_cached(rho_h, pair_h, device):
     rows = {"rho_v": rho_h, "pair_v": pair_h,
             "pair_g": tuple((_deriv_coefs(c), *c[1:]) for c in pair_h),
             "rho_g": tuple((_deriv_coefs(c), *c[1:]) for c in rho_h)}
+    _check_win_degree(rho_h + pair_h)
     tab = np.zeros((len(kernels.MT_TABLES), len(rho_h), kernels.NPOLY + 2),
                    np.float32)
     for k, name in enumerate(kernels.MT_TABLES):
@@ -349,7 +420,7 @@ def eam_rho(xi, alive, eam, grid):
     nn = torch.empty_like(rho)
     err = kernels.lib().imd_eam_rho(
         xi.data_ptr(), alive.data_ptr(), rho.data_ptr(), nn.data_ptr(),
-        _params_for(eam, grid, cap), nc, kernels.stream_ptr(xi.device))
+        _params_for(eam, grid, cap, 1), nc, kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_rho")
     kernels.LAUNCHES["eam_rho"] += 1
     return rho, nn
@@ -367,7 +438,7 @@ def eam_force(xi, alive, dF, eam, grid):
     F = torch.empty_like(xi)
     err = kernels.lib().imd_eam_force(
         xi.data_ptr(), alive.data_ptr(), dF.data_ptr(), F.data_ptr(),
-        _params_for(eam, grid, cap), nc, kernels.stream_ptr(xi.device))
+        _params_for(eam, grid, cap, 1), nc, kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_force")
     kernels.LAUNCHES["eam_force"] += 1
     return F
@@ -387,8 +458,9 @@ def eam_rho_mt(xi, typ, eam, grid, ntypes):
     nn = torch.empty_like(rho)
     err = kernels.lib().imd_eam_rho_mt(
         xi.data_ptr(), typ.data_ptr(), _mt_table(eam, xi.device).data_ptr(),
-        ntypes, rho.data_ptr(), nn.data_ptr(), _params_for(None, grid, cap),
-        nc, kernels.stream_ptr(xi.device))
+        ntypes, rho.data_ptr(), nn.data_ptr(),
+        _params_for(None, grid, cap, ntypes), nc,
+        kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_rho_mt")
     kernels.LAUNCHES["eam_rho_mt"] += 1
     return rho, nn
@@ -408,8 +480,9 @@ def eam_force_mt(xi, typ, dF, eam, grid, ntypes):
     F = torch.empty_like(xi)
     err = kernels.lib().imd_eam_force_mt(
         xi.data_ptr(), typ.data_ptr(), _mt_table(eam, xi.device).data_ptr(),
-        ntypes, dF.data_ptr(), F.data_ptr(), _params_for(None, grid, cap),
-        nc, kernels.stream_ptr(xi.device))
+        ntypes, dF.data_ptr(), F.data_ptr(),
+        _params_for(None, grid, cap, ntypes), nc,
+        kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_force_mt")
     kernels.LAUNCHES["eam_force_mt"] += 1
     return F
