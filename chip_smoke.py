@@ -8,7 +8,7 @@ and no JAX.  Phases, each of which fails the run loudly:
 1. build the CUDA kernels of imd_tpu_torch/csrc into imd_tpu_torch/_build
    (one nvcc per source in parallel; printing nvcc's time and ptxas'
    registers, shared memory, spills per kernel; any spill of the eight
-   full-stencil instantiations fails the run);
+   full-stencil instantiations or of K11/K12 fails the run);
 2. build the flagship configuration (imd_tpu_torch/flagship.py: bench.py's
    default TTM-coupled fcc Al EAM run, 1,000,188 atoms, float32), and its
    two-species twin (``ntypes=2``: types index % 2, tiled tables);
@@ -83,9 +83,17 @@ engine's.
 Phase 3 also holds B6's K12 pair_half (csrc/eam_half.cu), assembled,
 against its plain version (no cutoff flips; e to 1e-5, F and the stress
 sums to 1e-4 of their maxima; the same bits twice) on phase 7's state with
-0.1 A of jitter (grid 42^3, cap 16) and on the (3,2,2) grid with an open x
-face, and B6's masked result (``compute_pair_forces_pallas``) against the
-all-pairs float64 oracle on the small input.  Phase 7 drives the general
+0.1 A of jitter (grid 42^3, cap 16; and with 8 dead slots more a cell,
+cap 24, as most of phase 7's launches run) and on the (3,2,2) grid with an
+open x face, and B6's masked result (``compute_pair_forces_pallas``) against the
+all-pairs float64 oracle on the small input.  K11 and K12 then run a
+capacity sweep of their own (cap 17, 24, 31, 32, 40 and 128, each with the
+launch shape of ``forces_win.half_tile``; 17 and 31 leave padding
+lanes) on the 3 x 4 x 11 grid with its open x face, a quarter of the slots
+dead, one cell empty and one squeezed so that its lists fill: K11 to 1e-4
+of max|F| against its plain version, K12 through the same checks as above,
+both the same bits twice; and both wrappers must raise ValueError at cap
+129 before launching.  Phase 7 drives the general
 pair step through the driver: ``python -m imd_tpu_torch`` in process on
 examples/melt_quench's LJ (eps 0.35, sigma 2.62, r_cut 5.0) on the
 flagship's fcc box of 63^3 cells (1,000,188 atoms), ensemble nve from 0.2
@@ -94,18 +102,23 @@ just before: K12 must launch once per step and no other kernel, the skin
 check must have rebinned, no atom may be lost, the total energy per atom
 over the timed .eng lines must spread less than twice the float64 run of
 the same file on 16^3 cells (CPU, plain versions), and K12 must match its
-plain version on the last state.
+plain version on the last state (the grid grown to cap 32), give the same
+bits twice there, and is timed there beside its plain version and its
+bound; the phase counts K12's launches by capacity.
 
 Prints one JSON line each for the four main paths (one and two species,
 "split", "ab"), the bench configuration, the two driver runs and the LJ
 driver run, one
 {"kernels": [...]} line (with each kernel's bound: the larger of its FLOPs
 over the float32 peak and its bytes over the memory rate, counted from
-this run's inputs, and its share, bound / ms; ptxas' registers, spill
-bytes and static shared memory; for the full-stencil rows the launch tile
-and its dynamic shared memory at the flagship's shapes; B8's rows carry
-K4/K5's times), the card's name and power limit, and last {"ok": true,
-"device": {...}}.
+this run's inputs, and its share, bound / ms; the half-stencil passes'
+bytes from their live slots and view entries, since a dead slot's outputs
+are unspecified; ptxas' registers, spill bytes and static shared memory;
+for the full-stencil rows and K11/K12 the launch tile and its dynamic
+shared memory at the table's shapes; K12's row also its launches by
+capacity and its time at cap 24 and on phase 7's last state; B8's
+rows carry K4/K5's times), the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -176,6 +189,70 @@ def nvidia_smi_line() -> str:
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def time_ms(fn, reps):
+    """Mean ms of ``reps`` calls of ``fn`` after one warm-up (CUDA
+    events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def half_shape(cap: int, kind: str) -> dict:
+    """K11/K12's launch shape at ``cap`` (forces_win.half_tile)."""
+    from imd_tpu_torch.ops import forces_win as win
+    t = win.half_tile(cap, kind)
+    return {"cells": t.cpb, "threads": t.threads,
+            "smem_dynamic_bytes": t.smem}
+
+
+def roofline(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the FLOPs over
+    the float32 peak and the bytes over the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+# bytes a half-stencil pass moves for each live slot of xi, for each live
+# entry of its 13 views, and the j-partial bytes of an entry in an invalid
+# cell: the position and K11's dF in; the i-sums of a slot and the
+# j-partials of an entry out (K10: rho, nn; K11: fx, fy, fz; K12 as the
+# general step calls it: fx, fy, fz, e and, on the i side, the six stress
+# sums)
+HALF_BYTES = {"eam_rho_half": (12 + 2 * 4, 12 + 2 * 4, 2 * 4),
+              "eam_force_half": (12 + 4 + 3 * 4, 12 + 4 + 3 * 4, 3 * 4),
+              "pair_half": (12 + 4 * 4 + 6 * 4, 12 + 4 * 4, 4 * 4)}
+
+
+def half_bytes(name: str, xi, nbr) -> int:
+    """Bytes the half-stencil pass ``name`` must move on these inputs:
+    HALF_BYTES for each live slot of ``xi`` and each live entry of the
+    views ``nbr``.  A dead slot or entry (at SENTINEL_DEAD) costs the x
+    that tells it dead, and nothing more: its outputs are unspecified.  An
+    entry of an invalid cell (at SENTINEL_CELL, across an open face) costs
+    its x and its j-partials, which _assemble adds to the cell the roll
+    wraps to, so they must be written (as zeros)."""
+    from imd_tpu_torch.ops.forces_pallas import SENTINEL_CELL
+    from imd_tpu_torch.ops.forces_win import SENTINEL_DEAD
+    i_b, j_b, j_out = HALF_BYTES[name]
+    x, xv = xi[:, 0], nbr[:, :, 0]
+    li = int((x < SENTINEL_DEAD / 2).sum())
+    lj = int((xv < SENTINEL_DEAD / 2).sum())
+    inv = int((xv >= (SENTINEL_DEAD + SENTINEL_CELL) / 2).sum())
+    return (i_b * li + j_b * lj + j_out * inv
+            + 4 * (x.numel() + xv.numel() - li - lj))
 
 
 # Maxwell start of the counted main-path run: at bench.py's 0.026 eV no
@@ -427,14 +504,30 @@ def run_lj_driver(dev_name: str, smi: str):
     from imd_tpu_torch.phases import CudaPhaseTimer
 
     timer = CudaPhaseTimer()
+    # the capacity of each of K12's launches: the general step calls the
+    # wrapper through the module, so a pass-through here sees every call
+    # (the wrapper's own count stays the launch count)
+    by_cap = {}
+    wrapper = b4.pair_half
+
+    def counted(xi, *args, **kw):
+        by_cap[xi.shape[0]] = by_cap.get(xi.shape[0], 0) + 1
+        return wrapper(xi, *args, **kw)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    b4.pair_half = counted
     t0 = time.perf_counter()
-    sim, state, eng = run_lj([], LJ_CELLS, timer)
+    try:
+        sim, state, eng = run_lj([], LJ_CELLS, timer)
+    finally:
+        b4.pair_half = wrapper
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    check(sum(by_cap.values()) == launches["pair_half"],
+          f"K12 calls by capacity {by_cap} against its launches")
     peak = torch.cuda.max_memory_allocated()
     phases = timer.totals_ms()
     n_atoms = 4 * LJ_CELLS ** 3
@@ -488,6 +581,29 @@ def run_lj_driver(dev_name: str, smi: str):
     check(last["flips"] == 0 and last["F"] <= 1e-4 and last["e"] <= 1e-5
           and last["S"] <= 1e-4 and last["presstens"] <= 1e-4,
           "K12 against its plain version on the LJ driver's last state")
+    again = b4.pair_half(xi, nbr, sim.pair_run, sim.grid, True)
+    check(all(a is None and b is None or torch.equal(a, b)
+              for a, b in zip(out_k, again)),
+          "K12 gives the same bits twice on the LJ driver's last state")
+    # K12 timed there as the general step calls it (energy and stress),
+    # beside its plain version and its bound from this state's inputs
+    nn = b4._assemble(sim.grid.dims, out_p[0][4], out_p[2][4])
+    pairs = float(nn[mask].double().sum()) / 2.0
+    cap = sim.grid.capacity
+    last_state = {
+        "capacity": cap, "pairs": pairs,
+        "ms": time_ms(lambda: b4.pair_half(xi, nbr, sim.pair_run,
+                                           sim.grid), 10),
+        "plain_ms": time_ms(lambda: b4.pair_half_plain(
+            xi, nbr, sim.pair_run, sim.grid), 2),
+        **roofline(FLOPS_PER_PAIR["pair_half"] * pairs,
+                   half_bytes("pair_half", xi, nbr)),
+        "tile": half_shape(cap, "pair_energy")}
+    last_state["share"] = last_state["bound_ms"] / last_state["ms"]
+    print(f"K12 on the LJ driver's last state (cap {cap}): "
+          f"{last_state['ms']:.4f} ms (plain {last_state['plain_ms']:.2f}, "
+          f"bound {last_state['bound_ms']:.4f}, {last_state['bound_by']})")
+    del out_k, out_p, again, nn, xi, nbr
     report = {
         "config": "examples/melt_quench LJ (eps 0.35, sigma 2.62, r_cut "
                   "5.0, fastpoly-12 fit) on fcc 63^3 Al, 1,000,188 atoms, "
@@ -505,7 +621,9 @@ def run_lj_driver(dev_name: str, smi: str):
         "skin_rebins": sim.nbl_count,
         "rebins_per_step": sim.counters.rebins / steps_run,
         "host_syncs_per_step": sim.counters.host_syncs / steps_run,
-        "launches": launches, "max_memory_allocated_bytes": peak,
+        "launches": launches, "k12_launches_by_capacity": by_cap,
+        "k12_last_state": last_state,
+        "max_memory_allocated_bytes": peak,
         "eng": eng.tolist(), "energy_spread_eV": spread,
         "float64_reference_spread_eV": ref_spread,
         "float64_reference_s": ref_s, "energy_bound_eV": bound,
@@ -621,7 +739,7 @@ def main() -> int:
     usage = kernels.ptxas_usage(info.log)
     for row in (*kernels.WIN_FLAGS, *kernels.OTHER_SYMBOLS):
         print(f"ptxas {row}: {usage.get(row)}")
-    for row in kernels.WIN_FLAGS:
+    for row in (*kernels.WIN_FLAGS, "eam_force_half", "pair_half"):
         check(row in usage and usage[row]["spill_bytes"] == 0,
               f"{row}: -Xptxas -v shows no spills ({usage.get(row)})")
 
@@ -662,18 +780,6 @@ def main() -> int:
         pick = torch.rand(alive.shape, generator=gen, device=alive.device)
         pick = alive & (pick < frac)
         return torch.where(pick[:, None, :], cl0.xi + j, cl0.xi)
-
-    def time_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
 
     # The degree-12 fit does not vanish at the cutoff (for the flagship's
     # fit rho_fit(rc^2) = 0.0117, 2 dphi/dr^2 = 1.29 there), so a pair
@@ -1114,6 +1220,7 @@ def main() -> int:
           f"table {float(t_g[0]):.4f}; grid {lj_grid.dims} cap "
           f"{lj_grid.capacity}")
     xi_lj0, _, alive_lj = b4.prep_neighbors(lj.scene)
+    lj_cap = lj_grid.capacity
     del lj
     xi_lj = torch.where(alive_lj[:, None, :], xi_lj0 + torch.empty_like(
         xi_lj0).uniform_(-0.1, 0.1, generator=gen), xi_lj0).contiguous()
@@ -1143,6 +1250,89 @@ def main() -> int:
                tlabel + ", open x, LJ")
     nbr_lj, pairs_lj = check_pair(xi_lj, alive_lj, lj_pot, lj_grid,
                                   "LJ main path, jittered")
+    # K12 at cap 24, where 43 of phase 7's launches run (its grid grows
+    # from cap 16 to 24 and 32 and keeps its 42^3 cells): the jittered LJ
+    # state with 8 dead slots more a cell, checked as above
+    pad = 24 - lj_cap
+    xi_lj24 = torch.cat([xi_lj, torch.full(
+        (pad, 3, xi_lj.shape[2]), win.SENTINEL_DEAD,
+        device="cuda")]).contiguous()
+    alive_lj24 = torch.cat([alive_lj, torch.zeros(
+        (pad, alive_lj.shape[1]), dtype=torch.bool, device="cuda")])
+    lj_grid24 = CellGrid(box=lj_grid.box, dims=lj_grid.dims, capacity=24,
+                         cutoff=lj_grid.cutoff, skin=lj_grid.skin)
+    nbr_lj24, _ = check_pair(xi_lj24, alive_lj24, lj_pot, lj_grid24,
+                             "LJ main path, jittered, 8 dead slots more: "
+                             "cap 24")
+
+    # the half-stencil capacity sweep: K11 and K12 at cap 17, 24, 31, 32,
+    # 40 and the limit 128 (17 and 31 leave padding lanes in a warp) on
+    # the 3 x 4 x 11 grid of the full-stencil sweep with its open x face;
+    # a quarter of the slots dead (at SENTINEL_DEAD, scattered over the
+    # slots), one cell empty, and the squeezed cell full, so that its lists
+    # fill.  K11 (the flagship's EAM fit, dF from the plain density) to
+    # K11's tolerance against its plain version, K12 (the LJ fit, cutoff
+    # 5 A) through check_pair; both the same bits twice
+    empty = (2 * sdims[1] + 1) * sdims[2] + 7
+    for cap in (17, 24, 31, 32, 40, kernels.HALF_MAX_CAP):
+        u = torch.rand((cap, 3, ncs), generator=gen, device="cuda")
+        hxi = (ijk[None] + u) * edge
+        hxi[:, :, squeezed] = ijk[:, squeezed] * edge + 0.2 + 0.4 * u[
+            :, :, squeezed]
+        halive = torch.rand((cap, ncs), generator=gen, device="cuda") < 0.75
+        halive[:, squeezed] = True
+        halive[:, empty] = False
+        hxi = torch.where(halive[:, None, :], hxi.float(),
+                          win.SENTINEL_DEAD).contiguous()
+        hgrid = CellGrid(box=sbox, dims=sdims, capacity=cap,
+                         cutoff=flagship.CUTOFF, skin=flagship.SKIN)
+        t11 = win.half_tile(cap, "force")
+        hlabel = (f"half sweep cap {cap} (K11 {t11.cpb} cells, "
+                  f"{t11.threads} threads, {t11.smem} B)")
+        hnbr = b4.make_neighbor_views(hgrid, hxi.dtype, hxi.device)(hxi)
+        rho_h, _ = b4.eam_r_pass_plain(hxi, hnbr, eam, hgrid)
+        hdF = (0.5 * eam.embed.interp(0, rho_h)[1]
+               * halive.to(hxi.dtype)).contiguous()
+        hdFn = b4._dF_views(hdF, sdims).contiguous()
+        out_k = b4.eam_force_half(hxi, hnbr, hdF, hdFn, eam, hgrid)
+        again = b4.eam_force_half(hxi, hnbr, hdF, hdFn, eam, hgrid)
+        check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+              f"K11 gives the same bits twice ({hlabel})")
+        F_k = b4._forces(sdims, *out_k)
+        F_p = b4._forces(sdims, *b4.eam_force_half_plain(
+            hxi, hnbr, hdF, hdFn, eam, hgrid))
+        dF_h = (F_k - F_p).abs().amax(1)
+        rel = float(dF_h[halive].max() / F_p.abs().amax(1)[halive].max())
+        print(f"K11 eam_force_half ({hlabel}) vs plain: max |dF| / max|F| "
+              f"= {rel:.3e}")
+        check(rel <= 1e-4, f"K11 against its plain version ({hlabel})")
+        lgrid = CellGrid(box=sbox, dims=sdims, capacity=cap,
+                         cutoff=lj_grid.cutoff, skin=lj_grid.skin)
+        check_pair(hxi, halive, lj_pot, lgrid,
+                   f"half sweep cap {cap}, LJ")
+    del hxi, halive, hnbr, hdF, hdFn, out_k, again, F_k, F_p
+    # one slot above the limit: both wrappers raise before any launch
+    over = kernels.HALF_MAX_CAP + 1
+    ogrid = CellGrid(box=sbox, dims=sdims, capacity=over,
+                     cutoff=flagship.CUTOFF, skin=flagship.SKIN)
+    oxi = torch.zeros((over, 3, ncs), device="cuda")
+    onbr = torch.zeros((b4.NOF, over, 3, ncs), device="cuda")
+    odF = torch.zeros((over, ncs), device="cuda")
+    odFn = torch.zeros((b4.NOF, over, ncs), device="cuda")
+    before = dict(kernels.LAUNCHES)
+    for name, call in (
+            ("eam_force_half",
+             lambda: b4.eam_force_half(oxi, onbr, odF, odFn, eam, ogrid)),
+            ("pair_half", lambda: b4.pair_half(oxi, onbr, lj_pot, ogrid))):
+        try:
+            call()
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, f"{name} at capacity {over} must raise ValueError")
+    check(kernels.LAUNCHES == before, "no K11/K12 launch above the limit")
+    print(f"capacity {over}: K11 and K12 raise ValueError before launching")
+    del oxi, onbr, odF, odFn
 
     # ---- B8: compute_eam_forces_pallas2 on the flagship Scene ------------
     # with phase 3's jittered positions: the start lattice's forces cancel
@@ -1321,6 +1511,21 @@ def main() -> int:
                                                    lj_grid), 10)
     plain_ms["pair_half"] = time_ms(lambda: b4.pair_half_plain(
         xi_lj, nbr_lj, lj_pot, lj_grid), 2)
+    # and at cap 24 on the padded state, with its bound from those inputs
+    # (the same pairs)
+    k12_cap24 = {
+        "capacity": 24,
+        "ms": time_ms(lambda: b4.pair_half(xi_lj24, nbr_lj24, lj_pot,
+                                           lj_grid24), 10),
+        "plain_ms": time_ms(lambda: b4.pair_half_plain(
+            xi_lj24, nbr_lj24, lj_pot, lj_grid24), 2),
+        **roofline(FLOPS_PER_PAIR["pair_half"] * pairs_lj,
+                   half_bytes("pair_half", xi_lj24, nbr_lj24)),
+        "tile": half_shape(24, "pair_energy")}
+    k12_cap24["share"] = k12_cap24["bound_ms"] / k12_cap24["ms"]
+    print(f"K12 at cap 24 (the LJ state padded): {k12_cap24['ms']:.4f} ms "
+          f"(plain {k12_cap24['plain_ms']:.2f}, bound "
+          f"{k12_cap24['bound_ms']:.4f}, {k12_cap24['bound_by']})")
     oc = grid.capacity + 8
     ms["compact"] = time_ms(
         lambda: rebin_cl.compact(tgt, candf, candi, oc), 10)
@@ -1342,20 +1547,16 @@ def main() -> int:
     # and the outputs; the alloy kernels also read their coefficient buffer
     bytes_slot = {"eam_rho": 12 + 1 + 8, "eam_rho_e": 12 + 1 + 12,
                   "eam_force": 12 + 1 + 4 + 12,
-                  "eam_force_s": 12 + 1 + 4 + 12 + 24,
-                  # xi and the 13 views in, i-sums and 13 j-partials out
-                  # (rho and nn; fx, fy, fz), K11 also dF and its views
-                  "eam_rho_half": 12 + 13 * 12 + 2 * 4 + 2 * 13 * 4,
-                  "eam_force_half": 12 + 13 * 12 + 4 + 13 * 4 + 3 * 4
-                  + 3 * 13 * 4}
+                  "eam_force_s": 12 + 1 + 4 + 12 + 24}
     work = {n: (FLOPS_PER_PAIR[n] * pairs, bytes_slot[n] * slots)
             for n in bytes_slot}
-    # K12: xi and the 13 views in; the i-sums of fx, fy, fz, e, the six
-    # stress sums and the 13 j-partials of the four out
+    # K10/K11 on the flagship's views, K12 on the LJ state's: their bytes
+    # from the live slots and view entries (half_bytes)
+    for n in ("eam_rho_half", "eam_force_half"):
+        work[n] = (FLOPS_PER_PAIR[n] * pairs, half_bytes(n, xi, nbr_main))
     print(f"LJ pairs inside the cutoff: {pairs_lj:.0f}")
     work["pair_half"] = (FLOPS_PER_PAIR["pair_half"] * pairs_lj,
-                         (12 + 13 * 12 + 4 * 4 + 6 * 4 + 4 * 13 * 4)
-                         * alive_lj.numel())
+                         half_bytes("pair_half", xi_lj, nbr_lj))
     tab_bytes = win._mt_table(eam_s2, xi.device).numel() * 4
     for n, m in MT_OF.items():
         work[m] = (FLOPS_PER_PAIR[m] * pairs
@@ -1366,6 +1567,7 @@ def main() -> int:
                                 for t in (tgt, candf, candi)) + k3_out)
     del xi, xi_m, cl_m, cl_c, cl_k, cl_p, small, scl, tcl, tcl4, dF, dF2
     del tcl_o, nbr_main, dF_half, dFn_main, xi_lj, xi_lj0, nbr_lj, alive_lj
+    del xi_lj24, nbr_lj24, alive_lj24
     torch.cuda.empty_cache()
 
     # ---- 4. the main path (warmed so that the skin check triggers) -----
@@ -1619,23 +1821,31 @@ def main() -> int:
         tiles[row] = {"smem_dynamic_bytes": t.smem, "tile": {
             "cells": [t.tx, t.ty, t.tz], "threads": t.threads,
             "list_len": t.list_len}}
+    # K11/K12's launch shape at the table's shapes; K12's launches on the
+    # pair path by capacity, and its time on phase 7's last state
+    for row, cap_, kind in (("eam_force_half", grid.capacity, "force"),
+                            ("pair_half", lj_cap, "pair_energy")):
+        shape = half_shape(cap_, kind)
+        tiles[row] = {"smem_dynamic_bytes": shape.pop("smem_dynamic_bytes"),
+                      "tile": shape}
+    tiles["pair_half"]["launches_by_capacity"] = lj_report[
+        "k12_launches_by_capacity"]
+    tiles["pair_half"]["cap24"] = k12_cap24
+    tiles["pair_half"]["phase7_last_state"] = lj_report["k12_last_state"]
     launches["eam_rho_e_b8"] = b8_launches["eam_rho_e"]
     launches["eam_force_s_b8"] = b8_launches["eam_force_s"]
     out = []
     for n, src, rep in rows:
         kern = n.removesuffix("_b8")
-        flops, nbytes = work[kern]
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b = roofline(*work[kern])
         out.append({
             "name": n, "route": "cuda", "source": f"imd_tpu_torch/csrc/{src}",
             "replaces": rep, "launches": launches[n],
             "max_abs_err": errs[n], "ms": ms[kern],
-            "plain_ms": plain_ms[kern],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": None, "share": max(t_ops, t_bytes) / ms[kern],
-            "flops": flops, "bytes": nbytes, **usage.get(kern, {}),
+            "plain_ms": plain_ms[kern], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
+            "share": b["bound_ms"] / ms[kern], "flops": b["flops"],
+            "bytes": b["bytes"], **usage.get(kern, {}),
             **tiles.get(kern, {})})
     print(json.dumps({"kernels": out}))
     print(smi)

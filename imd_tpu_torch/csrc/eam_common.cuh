@@ -35,6 +35,16 @@ struct WinTile {
     int smem;         // bytes in all
 };
 
+// Launch shape of the half-stencil kernels K11/K12 (eam_half.cu), chosen on
+// the host (ops/forces_win.py:half_tile) and checked by their C entries
+// (half_ok); K10 and the full-stencil kernels leave it at zero.
+struct HalfTile {
+    int cpb;          // cells per block
+    int threads;      // block size: cap * cpb rounded up to whole warps
+    int smem;         // bytes of dynamic shared memory
+    float dead;       // a slot whose x is at or above this is dead
+};
+
 struct EamParams {
     Poly rho_v;       // rho(r^2)
     Poly pair_g;      // 2 dphi/dr^2
@@ -45,6 +55,7 @@ struct EamParams {
     int pbc[3];
     int gx, gy, gz, cap;
     WinTile tile;
+    HalfTile half;
 };
 
 __device__ __forceinline__ float poly_eval(const Poly& p, float x) {

@@ -58,6 +58,10 @@ WIN_MAX_SMEM = 232448
 WIN_LIST_SLACK = 64
 HALF_MAX_CAP = 128    # capacity the half-stencil kernels take: one cell's
                       # [cap][cap] scratches in shared memory (eam_half.cu)
+# K11/K12's launch shape (ops/forces_win.py:half_tile): at most
+# HALF_MAX_THREADS threads a block in at most HALF_MAX_SMEM bytes
+HALF_MAX_THREADS = 256
+HALF_MAX_SMEM = WIN_MAX_SMEM
 # order of the tables in the multi-type coefficient buffer
 # [4][ntypes^2][NPOLY + 2] (eam_win.cu: T_RHO_V ...)
 MT_TABLES = ("rho_v", "pair_v", "pair_g", "rho_g")
@@ -89,6 +93,13 @@ class WinTile(ctypes.Structure):
         "pos_off", "tab_off", "typ_off", "list_off", "smem")]
 
 
+class HalfTile(ctypes.Structure):
+    """Mirrors ``struct HalfTile`` in eam_common.cuh: K11/K12's launch
+    shape and dead-slot threshold (ops/forces_win.py:half_tile)."""
+    _fields_ = [*((name, ctypes.c_int) for name in (
+        "cpb", "threads", "smem")), ("dead", ctypes.c_float)]
+
+
 class EamParams(ctypes.Structure):
     """Mirrors ``struct EamParams`` in eam_common.cuh."""
     _fields_ = [("rho_v", Poly), ("pair_g", Poly), ("rho_g", Poly),
@@ -96,7 +107,7 @@ class EamParams(ctypes.Structure):
                 ("h", ctypes.c_float * 9), ("pbc", ctypes.c_int * 3),
                 ("gx", ctypes.c_int), ("gy", ctypes.c_int),
                 ("gz", ctypes.c_int), ("cap", ctypes.c_int),
-                ("tile", WinTile)]
+                ("tile", WinTile), ("half", HalfTile)]
 
 
 @dataclasses.dataclass

@@ -44,10 +44,12 @@ own cell with i < j, then the 13 offsets), and return i-sums and per-offset
 j-partials that ``_assemble`` rolls back and adds in torch.  The passes are
 K10 ``eam_rho_half`` and K11 ``eam_force_half`` (csrc/eam_half.cu), beside
 their plain versions ``eam_rho_half_plain`` and ``eam_force_half_plain``.
-Their outputs are UNMASKED, as on the TPU: two dead slots of one cell (both
-at SENTINEL_DEAD, r^2 = 0) count as a pair, so only live slots of the
-assembled values are meaningful; ``eam_kernels_cl_split`` masks them.  The
-TPU's lane padding (``_split_geometry``, ``block``, ``unroll``) has no
+Their outputs are UNMASKED, as on the TPU: only live slots of the assembled
+values are meaningful, and ``eam_kernels_cl_split`` masks them.  A dead
+slot's values are unspecified: the plain versions and K10 pair two dead
+slots of one cell (both at SENTINEL_DEAD, r^2 = 0), K11 (and K12) skip
+dead slots.  K11/K12's launch shape comes from ``forces_win.half_tile``.
+The TPU's lane padding (``_split_geometry``, ``block``, ``unroll``) has no
 counterpart: those arguments are taken and ignored.
 
 B6, ``compute_pair_forces_pallas`` (imd_tpu :431), the general step's pair
@@ -510,7 +512,10 @@ def eam_rho_half(xi, nbr, eam, grid, count_neighbors: bool = False,
 
 
 def eam_force_half(xi, nbr, dF, dFn, eam, grid):
-    """K11 wrapper: ``eam_force_half_plain``'s (acc_i, acc_j)."""
+    """K11 wrapper: ``eam_force_half_plain``'s (acc_i, acc_j) at every
+    live slot.  A dead slot's values are unspecified: the kernel skips
+    slots at SENTINEL_DEAD (and writes zeros there) where the plain version
+    pairs two dead slots of one cell."""
     if not xi.is_cuda:
         if xi.device.type != "cpu":
             raise TypeError(f"unsupported device {xi.device}")
@@ -526,7 +531,8 @@ def eam_force_half(xi, nbr, dF, dFn, eam, grid):
     acc_j = torch.empty((3, NOF, cap, nc), dtype=xi.dtype, device=xi.device)
     err = kernels.lib().imd_eam_force_half(
         xi.data_ptr(), nbr.data_ptr(), dF.data_ptr(), dFn.data_ptr(),
-        acc_i.data_ptr(), acc_j.data_ptr(), _params_for(eam, grid, cap), nc,
+        acc_i.data_ptr(), acc_j.data_ptr(),
+        _params_for(eam, grid, cap, half="force"), nc,
         kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_force_half")
     kernels.LAUNCHES["eam_force_half"] += 1
@@ -573,7 +579,9 @@ def eam_r_pass_plain(xi, nbr, eam, grid, count_neighbors: bool = False,
 def eam_f_pass(xi, nbr, dF, eam, grid, block: int = 128, unroll: int = 1):
     """The F pass of the split (K11, assembled): UNMASKED forces
     [cap,3,NC] from the combined gradient phi' + (dF_i + dF_j) rho', with
-    ``dF`` [cap,NC] the half embedding derivative, masked by the caller."""
+    ``dF`` [cap,NC] the half embedding derivative, masked by the caller.
+    A dead slot's values are unspecified (K11 skips dead slots; the plain
+    version pairs two dead slots of one cell)."""
     return _forces(grid.dims, *eam_force_half(
         xi, nbr, dF, _dF_views(dF, grid.dims), eam, grid))
 
@@ -657,7 +665,10 @@ def pair_half_plain(xi, nbr, pot, grid, count_neighbors: bool = False,
 def pair_half(xi, nbr, pot, grid, count_neighbors: bool = False,
               neigh_r2: float = 0.0, need_energy: bool = True,
               need_stress: bool = True):
-    """K12 wrapper: ``pair_half_plain``'s (acc_i, acc_s, acc_j)."""
+    """K12 wrapper: ``pair_half_plain``'s (acc_i, acc_s, acc_j) at every
+    live slot.  A dead slot's values are unspecified: the kernel skips
+    slots at SENTINEL_DEAD (and writes zeros there) where the plain version
+    pairs two dead slots of one cell."""
     if not xi.is_cuda:
         if xi.device.type != "cpu":
             raise TypeError(f"unsupported device {xi.device}")
@@ -675,7 +686,9 @@ def pair_half(xi, nbr, pot, grid, count_neighbors: bool = False,
         xi.data_ptr(), nbr.data_ptr(), acc_i.data_ptr(),
         0 if acc_s is None else acc_s.data_ptr(), acc_j.data_ptr(),
         int(bool(need_energy)), int(bool(count_neighbors)),
-        _nr2(grid, neigh_r2), _pair_params(pot, grid, cap), nc,
+        _nr2(grid, neigh_r2),
+        _pair_params(pot, grid, cap,
+                     "pair_energy" if need_energy else "pair"), nc,
         kernels.stream_ptr(xi.device))
     kernels.check(err, "pair_half")
     kernels.LAUNCHES["pair_half"] += 1

@@ -286,22 +286,61 @@ def win_tile(cap: int, dims, nt: int = 1):
     raise AssertionError(f"no tile fits capacity {cap}")
 
 
+# scratch fields a pair keeps for K11/K12's j side, by launch kind: the
+# gradient, and phi when K12 computes the energy
+HALF_FIELDS = {"force": 1, "pair": 1, "pair_energy": 2}
+
+
+def half_smem(cap: int, cpb: int, threads: int, nf: int) -> int:
+    """Shared-memory bytes of a K11/K12 block (eam_half.cu:half_smem): the
+    own cell and two staged views as float4 per cell, ``nf`` scratches of
+    cap rows of cap * cpb + 1 floats, the column masks per cell, a limit
+    per staged cell, and the uint16 lists of cap entries."""
+    words = -(-cap // 32)
+    return (16 * 3 * cap * cpb + 4 * nf * cap * (cap * cpb + 1)
+            + 4 * words * cap * cpb + 4 * 3 * cpb + 2 * cap * threads)
+
+
+@functools.lru_cache(maxsize=None)
+def half_tile(cap: int, kind: str):
+    """Launch shape of K11 (``kind`` "force") and K12 ("pair", or
+    "pair_energy" when it computes the energy) at capacity ``cap``, a fixed
+    rule: the most cells a block, a power of two, whose cap * cells
+    threads fit HALF_MAX_THREADS, halved until the shared memory fits
+    HALF_MAX_SMEM; threads rounded up to whole warps.  Slots with x at or
+    above half of SENTINEL_DEAD are dead."""
+    if not 1 <= cap <= kernels.HALF_MAX_CAP:
+        raise ValueError(f"capacity {cap} outside the half-stencil "
+                         f"kernels' 1..{kernels.HALF_MAX_CAP}")
+    nf = HALF_FIELDS[kind]
+    cpb = 1 << (kernels.HALF_MAX_THREADS // cap).bit_length() - 1
+    while True:
+        threads = -(-cap * cpb // 32) * 32
+        smem = half_smem(cap, cpb, threads, nf)
+        if smem <= kernels.HALF_MAX_SMEM:
+            return kernels.HalfTile(cpb=cpb, threads=threads, smem=smem,
+                                    dead=SENTINEL_DEAD / 2)
+        cpb //= 2
+
+
 def _check_win_degree(host) -> None:
-    """The full-stencil kernels' Horners stop at degree WIN_DEG."""
+    """The stencil kernels' Horners (K1-K9, K11, K12) stop at degree
+    WIN_DEG."""
     for c, _, _ in host:
         deg = max((k for k, v in enumerate(c) if v != 0.0), default=0)
         if deg > kernels.WIN_DEG:
             raise ValueError(f"polynomial degree {deg} exceeds the "
-                             f"full-stencil kernels' {kernels.WIN_DEG}")
+                             f"stencil kernels' {kernels.WIN_DEG}")
 
 
 @functools.lru_cache(maxsize=16)
-def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap, nt=0):
+def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap, nt=0, half=None):
     """ctypes EamParams from the baked host tuples (all hashable);
     ``rho_h``/``pair_h`` None leaves their polynomials empty (the multi-type
     kernels read theirs from ``_mt_table``); ``nt`` > 0 fills the
-    full-stencil kernels' tile for ``nt`` species and holds the fits to
-    their degree."""
+    full-stencil kernels' tile for ``nt`` species, ``half`` (a kind of
+    ``half_tile``) K11/K12's launch shape; either holds the fits to their
+    degree."""
     p = kernels.EamParams()
 
     def fill(dst, c, b, e):
@@ -327,9 +366,12 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap, nt=0):
         p.pbc[k] = pbc[k]
     p.gx, p.gy, p.gz = dims
     p.cap = cap
-    if nt:
+    if nt or half:
         _check_win_degree(h for h in (rho_h, pair_h) if h is not None)
+    if nt:
         p.tile = win_tile(cap, dims, nt)
+    if half:
+        p.half = half_tile(cap, half)
     return p
 
 
@@ -361,24 +403,27 @@ def _check_cuda_dF(dF, xi, name):
                         "on the device of xi")
 
 
-def _pair_params(pot, grid, cap):
+def _pair_params(pot, grid, cap, half=None):
     """EamParams of a single-species pair fit (the density polynomials
-    empty): K12's value and derivative Horners of phi."""
+    empty): K12's value and derivative Horners of phi; ``half`` as in
+    ``_params_for``."""
     h = tuple(float(v) for v in grid.box.h.reshape(-1))
     return _eam_params(None, _poly_consts(pot), float(grid.cutoff) ** 2, h,
-                       tuple(grid.box.pbc), tuple(grid.dims), int(cap))
+                       tuple(grid.box.pbc), tuple(grid.dims), int(cap),
+                       half=half)
 
 
-def _params_for(eam, grid, cap, nt=0):
+def _params_for(eam, grid, cap, nt=0, half=None):
     """EamParams of a single-species set; of the geometry alone for
     ``eam`` None.  ``nt`` > 0 adds the full-stencil kernels' tile for
-    ``nt`` species (and holds the fits to their degree)."""
+    ``nt`` species, ``half`` K11/K12's launch shape of that kind (either
+    holds the fits to their degree)."""
     h = tuple(float(v) for v in grid.box.h.reshape(-1))
     rho_h, pair_h = (None, None) if eam is None else \
         (_poly_consts(eam.rho), _poly_consts(eam.pair))
     return _eam_params(rho_h, pair_h, float(grid.cutoff) ** 2, h,
                        tuple(grid.box.pbc), tuple(grid.dims), int(cap),
-                       int(nt))
+                       int(nt), half)
 
 
 @functools.lru_cache(maxsize=8)
