@@ -8,7 +8,7 @@ and no JAX.  Phases, each of which fails the run loudly:
 1. build the CUDA kernels of imd_tpu_torch/csrc into imd_tpu_torch/_build
    (one nvcc per source in parallel; printing nvcc's time and ptxas'
    registers, shared memory, spills per kernel; any spill of the eight
-   full-stencil instantiations or of K11/K12 fails the run);
+   full-stencil instantiations or of K10-K12 fails the run);
 2. build the flagship configuration (imd_tpu_torch/flagship.py: bench.py's
    default TTM-coupled fcc Al EAM run, 1,000,188 atoms, float32), and its
    two-species twin (``ntypes=2``: types index % 2, tiled tables);
@@ -86,14 +86,16 @@ sums to 1e-4 of their maxima; the same bits twice) on phase 7's state with
 0.1 A of jitter (grid 42^3, cap 16; and with 8 dead slots more a cell,
 cap 24, as most of phase 7's launches run) and on the (3,2,2) grid with an
 open x face, and B6's masked result (``compute_pair_forces_pallas``) against the
-all-pairs float64 oracle on the small input.  K11 and K12 then run a
+all-pairs float64 oracle on the small input.  K10, K11 and K12 then run a
 capacity sweep of their own (cap 17, 24, 31, 32, 40 and 128, each with the
 launch shape of ``forces_win.half_tile``; 17 and 31 leave padding
 lanes) on the 3 x 4 x 11 grid with its open x face, a quarter of the slots
-dead, one cell empty and one squeezed so that its lists fill: K11 to 1e-4
-of max|F| against its plain version, K12 through the same checks as above,
-both the same bits twice; and both wrappers must raise ValueError at cap
-129 before launching.  Phase 7 drives the general
+dead, one cell empty and one squeezed so that its lists fill: K10 against
+its plain version on live slots with ``check_half``'s tolerances (the count
+within the cutoff, and within 0.9 of it, where its j side recomputes r^2),
+K11 to 1e-4 of max|F| against its plain version, K12 through the same
+checks as above, all three the same bits twice; and the three wrappers
+must raise ValueError at cap 129 before launching.  Phase 7 drives the general
 pair step through the driver: ``python -m imd_tpu_torch`` in process on
 examples/melt_quench's LJ (eps 0.35, sigma 2.62, r_cut 5.0) on the
 flagship's fcc box of 63^3 cells (1,000,188 atoms), ensemble nve from 0.2
@@ -114,7 +116,7 @@ over the float32 peak and its bytes over the memory rate, counted from
 this run's inputs, and its share, bound / ms; the half-stencil passes'
 bytes from their live slots and view entries, since a dead slot's outputs
 are unspecified; ptxas' registers, spill bytes and static shared memory;
-for the full-stencil rows and K11/K12 the launch tile and its dynamic
+for the full-stencil rows and K10-K12 the launch tile and its dynamic
 shared memory at the table's shapes; K12's row also its launches by
 capacity and its time at cap 24 and on phase 7's last state; B8's
 rows carry K4/K5's times), the card's name and power limit, and last
@@ -208,7 +210,7 @@ def time_ms(fn, reps):
 
 
 def half_shape(cap: int, kind: str) -> dict:
-    """K11/K12's launch shape at ``cap`` (forces_win.half_tile)."""
+    """K10-K12's launch shape at ``cap`` (forces_win.half_tile)."""
     from imd_tpu_torch.ops import forces_win as win
     t = win.half_tile(cap, kind)
     return {"cells": t.cpb, "threads": t.threads,
@@ -739,7 +741,8 @@ def main() -> int:
     usage = kernels.ptxas_usage(info.log)
     for row in (*kernels.WIN_FLAGS, *kernels.OTHER_SYMBOLS):
         print(f"ptxas {row}: {usage.get(row)}")
-    for row in (*kernels.WIN_FLAGS, "eam_force_half", "pair_half"):
+    for row in (*kernels.WIN_FLAGS, "eam_rho_half", "eam_force_half",
+                "pair_half"):
         check(row in usage and usage[row]["spill_bytes"] == 0,
               f"{row}: -Xptxas -v shows no spills ({usage.get(row)})")
 
@@ -1113,6 +1116,27 @@ def main() -> int:
     del sxi, salive, styp, oxi, oal, otyp, odF
 
     # ---- B7: the rolled-view split, K10 and K11 ----------------------
+    def hold_k10(rho_k, nn_k, rho_o, nn_o, alive, rho_jump, rho_scale, tol,
+                 what):
+        """K10's assembled (rho, nn) against another version's on the live
+        slots: nn equal in all but ``tol`` of them; elsewhere |drho| to
+        ``tol`` of ``rho_scale``, and at the flipped slots |drho| less the
+        fit's jump per flip too.  Returns the slots where nn agrees."""
+        live = int(alive.sum())
+        agree = alive & (nn_k == nn_o)
+        flips = alive & ~agree
+        drho = (rho_k - rho_o).abs()
+        rel = float(drho[agree].max()) / rho_scale
+        off = flip_residual(drho, (nn_k - nn_o).abs(), rho_jump, flips,
+                            True)
+        print(f"K10 eam_rho_half vs {what}: nn differs in "
+              f"{int(flips.sum())} of {live} live slots; elsewhere max "
+              f"|drho| / max rho = {rel:.3e}; at those slots |drho| - "
+              f"|dnn| rho_fit(rc^2) = {off:.3e}")
+        check(int(flips.sum()) <= tol * live and rel <= tol
+              and off <= tol * rho_scale, f"K10 against {what}")
+        return agree
+
     def check_half(xi, alive, eam, grid, label):
         """K10/K11 (assembled) against their plain versions and against
         K1/K2 on one input, and two launches against each other; notes
@@ -1126,7 +1150,6 @@ def main() -> int:
         ~30 eV/A that cancel: so F is held to K2 at 5e-4 of max|F|."""
         dims = grid.dims
         rho_jump, _, grad_jump = jumps(eam)
-        live = int(alive.sum())
         nbr = b4.make_neighbor_views(grid, xi.dtype, xi.device)(xi)
         out_k = b4.eam_rho_half(xi, nbr, eam, grid, True)
         again = b4.eam_rho_half(xi, nbr, eam, grid, True)
@@ -1140,26 +1163,15 @@ def main() -> int:
         agrees = []
         for other, (rho_o, nn_o) in (("plain", (rho_p, nn_p)),
                                      ("K1", (rho_1, nn_1))):
-            agree = alive & (nn_k == nn_o)
-            flips = alive & ~agree
-            drho = (rho_k - rho_o).abs()
-            rel = float(drho[agree].max()) / rho_scale
-            off = flip_residual(drho, (nn_k - nn_o).abs(), rho_jump, flips,
-                                True)
-            print(f"K10 eam_rho_half ({label}) vs {other}: nn differs in "
-                  f"{int(flips.sum())} of {live} live slots; elsewhere max "
-                  f"|drho| / max rho = {rel:.3e}; at those slots |drho| - "
-                  f"|dnn| rho_fit(rc^2) = {off:.3e}")
             # K10 books half its pairs from the partner's side, whose r^2
             # may differ from K1's in the last bit: more cutoff flips
             # (7 of 1,000,188 slots on the main path's state), and the
             # fit's Horner rounds each such pair differently (1.4e-5 of
             # max rho there): against K1, 1e-4 for both
             tol = 1e-5 if other == "plain" else 1e-4
-            check(int(flips.sum()) <= tol * live and rel <= tol
-                  and off <= tol * rho_scale,
-                  f"K10 against {other} ({label})")
-            agrees.append(agree)
+            agrees.append(hold_k10(rho_k, nn_k, rho_o, nn_o, alive,
+                                   rho_jump, rho_scale, tol,
+                                   f"{other} ({label})"))
         errs["eam_rho_half"] = max(errs["eam_rho_half"],
                                    float((rho_k - rho_p).abs()[alive].max()))
         dF = 0.5 * eam.embed.interp(0, rho_p)[1] * alive.to(xi.dtype)
@@ -1265,14 +1277,17 @@ def main() -> int:
                              "LJ main path, jittered, 8 dead slots more: "
                              "cap 24")
 
-    # the half-stencil capacity sweep: K11 and K12 at cap 17, 24, 31, 32,
-    # 40 and the limit 128 (17 and 31 leave padding lanes in a warp) on
-    # the 3 x 4 x 11 grid of the full-stencil sweep with its open x face;
-    # a quarter of the slots dead (at SENTINEL_DEAD, scattered over the
-    # slots), one cell empty, and the squeezed cell full, so that its lists
-    # fill.  K11 (the flagship's EAM fit, dF from the plain density) to
-    # K11's tolerance against its plain version, K12 (the LJ fit, cutoff
-    # 5 A) through check_pair; both the same bits twice
+    # the half-stencil capacity sweep: K10, K11 and K12 at cap 17, 24, 31,
+    # 32, 40 and the limit 128 (17 and 31 leave padding lanes in a warp)
+    # on the 3 x 4 x 11 grid of the full-stencil sweep with its open x
+    # face; a quarter of the slots dead (at SENTINEL_DEAD, scattered over
+    # the slots), one cell empty, and the squeezed cell full, so that its
+    # lists fill.  K10 (the flagship's EAM fit) against its plain version
+    # on live slots with check_half's tolerances, its count within the
+    # cutoff and within 0.9 of it (its j side then recomputes r^2); K11
+    # (dF from the plain density) to K11's tolerance against its plain
+    # version, K12 (the LJ fit, cutoff 5 A) through check_pair; all three
+    # the same bits twice
     empty = (2 * sdims[1] + 1) * sdims[2] + 7
     for cap in (17, 24, 31, 32, 40, kernels.HALF_MAX_CAP):
         u = torch.rand((cap, 3, ncs), generator=gen, device="cuda")
@@ -1287,10 +1302,24 @@ def main() -> int:
         hgrid = CellGrid(box=sbox, dims=sdims, capacity=cap,
                          cutoff=flagship.CUTOFF, skin=flagship.SKIN)
         t11 = win.half_tile(cap, "force")
-        hlabel = (f"half sweep cap {cap} (K11 {t11.cpb} cells, "
-                  f"{t11.threads} threads, {t11.smem} B)")
+        t10 = win.half_tile(cap, "rho")
+        hlabel = (f"half sweep cap {cap} (K10 {t10.cpb} cells, "
+                  f"{t10.threads} threads, {t10.smem} B; K11 {t11.cpb}, "
+                  f"{t11.threads}, {t11.smem} B)")
         hnbr = b4.make_neighbor_views(hgrid, hxi.dtype, hxi.device)(hxi)
         rho_h, _ = b4.eam_r_pass_plain(hxi, hnbr, eam, hgrid)
+        rho_jump = jumps(eam)[0]
+        for nr2 in (0.0, (0.9 * hgrid.cutoff) ** 2):
+            out_k = b4.eam_rho_half(hxi, hnbr, eam, hgrid, True, nr2)
+            again = b4.eam_rho_half(hxi, hnbr, eam, hgrid, True, nr2)
+            check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+                  f"K10 gives the same bits twice ({hlabel}, nr2 {nr2})")
+            rho_k, nn_k = b4._rho_nn(sdims, *out_k)
+            rho_p, nn_p = b4._rho_nn(sdims, *b4.eam_rho_half_plain(
+                hxi, hnbr, eam, hgrid, True, nr2))
+            hold_k10(rho_k, nn_k, rho_p, nn_p, halive, rho_jump,
+                     float(rho_p[halive].abs().max()), 1e-5,
+                     f"plain ({hlabel}, nr2 {nr2:.4f})")
         hdF = (0.5 * eam.embed.interp(0, rho_h)[1]
                * halive.to(hxi.dtype)).contiguous()
         hdFn = b4._dF_views(hdF, sdims).contiguous()
@@ -1311,7 +1340,8 @@ def main() -> int:
         check_pair(hxi, halive, lj_pot, lgrid,
                    f"half sweep cap {cap}, LJ")
     del hxi, halive, hnbr, hdF, hdFn, out_k, again, F_k, F_p
-    # one slot above the limit: both wrappers raise before any launch
+    del rho_k, nn_k, rho_p, nn_p
+    # one slot above the limit: the three wrappers raise before any launch
     over = kernels.HALF_MAX_CAP + 1
     ogrid = CellGrid(box=sbox, dims=sdims, capacity=over,
                      cutoff=flagship.CUTOFF, skin=flagship.SKIN)
@@ -1321,6 +1351,8 @@ def main() -> int:
     odFn = torch.zeros((b4.NOF, over, ncs), device="cuda")
     before = dict(kernels.LAUNCHES)
     for name, call in (
+            ("eam_rho_half",
+             lambda: b4.eam_rho_half(oxi, onbr, eam, ogrid, True)),
             ("eam_force_half",
              lambda: b4.eam_force_half(oxi, onbr, odF, odFn, eam, ogrid)),
             ("pair_half", lambda: b4.pair_half(oxi, onbr, lj_pot, ogrid))):
@@ -1330,8 +1362,9 @@ def main() -> int:
         except ValueError:
             raised = True
         check(raised, f"{name} at capacity {over} must raise ValueError")
-    check(kernels.LAUNCHES == before, "no K11/K12 launch above the limit")
-    print(f"capacity {over}: K11 and K12 raise ValueError before launching")
+    check(kernels.LAUNCHES == before, "no K10-K12 launch above the limit")
+    print(f"capacity {over}: K10, K11 and K12 raise ValueError before "
+          "launching")
     del oxi, onbr, odF, odFn
 
     # ---- B8: compute_eam_forces_pallas2 on the flagship Scene ------------
@@ -1821,9 +1854,10 @@ def main() -> int:
         tiles[row] = {"smem_dynamic_bytes": t.smem, "tile": {
             "cells": [t.tx, t.ty, t.tz], "threads": t.threads,
             "list_len": t.list_len}}
-    # K11/K12's launch shape at the table's shapes; K12's launches on the
+    # K10-K12's launch shape at the table's shapes; K12's launches on the
     # pair path by capacity, and its time on phase 7's last state
-    for row, cap_, kind in (("eam_force_half", grid.capacity, "force"),
+    for row, cap_, kind in (("eam_rho_half", grid.capacity, "rho"),
+                            ("eam_force_half", grid.capacity, "force"),
                             ("pair_half", lj_cap, "pair_energy")):
         shape = half_shape(cap_, kind)
         tiles[row] = {"smem_dynamic_bytes": shape.pop("smem_dynamic_bytes"),

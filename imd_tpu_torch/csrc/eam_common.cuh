@@ -35,9 +35,9 @@ struct WinTile {
     int smem;         // bytes in all
 };
 
-// Launch shape of the half-stencil kernels K11/K12 (eam_half.cu), chosen on
+// Launch shape of the half-stencil kernels K10-K12 (eam_half.cu), chosen on
 // the host (ops/forces_win.py:half_tile) and checked by their C entries
-// (half_ok); K10 and the full-stencil kernels leave it at zero.
+// (half_ok); the full-stencil kernels leave it at zero.
 struct HalfTile {
     int cpb;          // cells per block
     int threads;      // block size: cap * cpb rounded up to whole warps

@@ -14,6 +14,7 @@
 // with the same contract: the kernels read the views they are given and
 // know nothing of the periodicity, and write i-sums and per-offset j-side
 // partials that torch rolls back and adds (_assemble, forces_pallas.py).
+// The three are one templated body, half_body<KIND>.
 //
 // Inputs (f32, cells last, NC = gx*gy*gz, NOF = 13 half-stencil offsets):
 //   xi  [cap, 3, NC]       the cells' own slots (dead slots at 1e6)
@@ -35,43 +36,29 @@
 // the lattice is evaluated exactly once.  A pair's value goes to the i-sum of
 // slot i and to the j-partial of slot j of its view.  In the own cell both
 // land in the i-sums (i-sum over j > s plus j-sum over i < s).  Nothing is
-// masked: the contract is unmasked, as on the TPU, and the outputs of dead
-// slots are unspecified.  K10 counts two dead slots of one cell (both at
-// 1e6, r^2 = 0) as a pair and writes what they give; K11 and K12 skip dead
+// masked: the contract is unmasked, as on the TPU.  The kernels skip dead
 // slots (x at or above EamParams.half.dead, half of the 1e6 sentinel) and
-// write zeros for them.  The callers mask them.  Live slots are ~1e6 away
-// from any dead slot and ~3e6 from an invalid cell, so the outputs of live
-// slots are exact either way.
+// write zeros for them: a dead slot's outputs are unspecified (the plain
+// versions pair two dead slots of one cell), and the callers mask them.
+// Live slots are ~1e6 away from any dead slot and ~3e6 from an invalid
+// cell, so the outputs of live slots are exact either way.
 //
-// K10's design.  One block takes CPB cells (8 when shared memory allows) and
-// one thread per (slot s, cell): threadIdx.x = s * CPB + cell, so a warp
-// reads 8 consecutive cells of 4 slots (full 32-byte sectors of the
-// cells-last arrays).  Per offset, every thread stages slot s of the view in
-// shared memory; then as slot i it runs over the cap staged slots j, sums
-// its i-side contributions in registers and writes each pair's rho(r^2) into
-// a [cap][cap] scratch per cell; after a barrier, as slot j it sums its
-// column of the scratch in the fixed order i = 0..cap-1; the count of its
-// j side recomputes r^2 from the staged positions, with the same operands,
-// so with the same bits.  Each thread runs cap candidates per offset, 14 *
-// cap in all, for ~8% in-cutoff pairs, and a warp evaluates the Horner
-// whenever one of its lanes is inside (almost always).  K10 keeps this
-// design until it gets K11's.
-//
-// K11/K12's design: in-cutoff pair lists, dead slots skipped.  The launch
-// shape (EamParams.half: cells per block, threads, shared memory) comes from
-// the host (forces_win.half_tile: the most cells, a power of two, whose
-// cap * cells threads fit 256, halved until the shared memory fits), and
-// half_ok checks it.  threadIdx.x = s * cpb + cell as in K10 (cpb >= 8 up
-// to capacity 32, so a warp reads whole 32-byte sectors), rounded up to
-// whole warps: a padding lane (s >= cap) stages, scans and writes nothing,
-// and takes part in the barriers and warp votes only.  The block loads its
-// cells' own slots into registers and stages them as float4 (x, y, z, and
-// dF in K11), with each staged cell's limit, 1 + its last live slot (a
-// shared atomicMax).  A block whose cells hold no live slot writes zeros
-// and returns.  Then 14 sweeps: the own cell, and the 13 views one at a
-// time.  A view is copied global -> shared with cp.async while the sweep
-// before is scanned, into the other of two staged arrays, and lands (with
-// its limits) before the barrier that opens its sweep.  Per sweep:
+// The design: in-cutoff pair lists, dead slots skipped.  The launch shape
+// (EamParams.half: cells per block, threads, shared memory) comes from the
+// host (forces_win.half_tile: the most cells, a power of two, whose cap *
+// cells threads fit 256, halved until the shared memory fits), and half_ok
+// checks it.  threadIdx.x = s * cpb + cell (cpb >= 8 up to capacity 32, so
+// a warp reads whole 32-byte sectors of the cells-last arrays), rounded up
+// to whole warps: a padding lane (s >= cap) stages, scans and writes
+// nothing, and takes part in the barriers and warp votes only.  The block
+// loads its cells' own slots into registers and stages them as float4 (x,
+// y, z, and dF in K11; .w unused in K10 and K12), with each staged cell's
+// limit, 1 + its last live slot (a shared atomicMax).  A block whose cells
+// hold no live slot writes zeros and returns.  Then 14 sweeps: the own
+// cell, and the 13 views one at a time.  A view is copied global -> shared
+// with cp.async while the sweep before is scanned, into the other of two
+// staged arrays, and lands (with its limits) before the barrier that opens
+// its sweep.  Per sweep:
 //   1. The scan.  A live slot i runs over the staged candidates below its
 //      cell's limit (in the own cell j > i), computes r^2 with fused
 //      multiply-adds and appends each candidate inside the cutoff widened by
@@ -83,44 +70,51 @@
 //      fits; the wrappers refuse higher) run over the list only, two
 //      entries a step, so a warp evaluates them as often as its longest
 //      list, not at every candidate that one of its lanes finds inside.  An
-//      entry recomputes the rounded r^2 with the earlier design's operands,
-//      so with its bits, and decides on it; its value (the gradient g, and
-//      phi in K12 with the energy) goes to a per-cell [cap i][cap j] scratch
-//      (rows padded by one word against bank conflicts) and bit i of the
-//      column mask for j is set (shared atomicOr).  The i-side sums keep
-//      their per-view partials and are added to the running total at each
-//      view's end (fx += -gx), the own cell's after its j side (fx = -gx +
-//      hx): the order of the earlier design, whose unlisted pairs added
+//      entry recomputes the rounded r^2 with the operands of the plain
+//      one-candidate-at-a-time sweep (dx = x_i - x_j, unfused), so with its
+//      bits, and decides the cutoff on it; its value (rho in K10, the
+//      gradient g in K11, g and, with the energy, phi in K12) goes to a
+//      per-cell [cap i][cap j] scratch (rows padded by one word against
+//      bank conflicts) and bit i of the column mask for j is set (shared
+//      atomicOr).  The i-side sums keep their per-view partials and are
+//      added to the running total at each view's end (rho += ri, fx +=
+//      -gx), the own cell's after its j side (rho = ri + rj, fx = -gx +
+//      hx): the order of the one-sweep design, whose unlisted pairs added
 //      exact zeros.
 //   3. The j side.  After a barrier, slot j of the staged array walks the
-//      set bits of its column mask in ascending i, sums g (x_i - x_j) (and
-//      phi, and the count) and writes its j-partial; it clears the mask for
-//      the next sweep.  An unlisted pair adds nothing, where it added an
-//      exact 0 before: the same sums.  The next view's copies land, and a
-//      barrier opens its sweep.
+//      set bits of its column mask in ascending i, sums the scratch (K11
+//      and K12: g (x_i - x_j), and phi) and the count, and writes its
+//      j-partial; it clears the mask for the next sweep.  The count
+//      recomputes r^2 from the staged x_i - x_j, the flush's operands, so
+//      with its bits; K10 recomputes nothing when nn's radius is the
+//      cutoff's (a listed pair is inside it).  An unlisted pair adds
+//      nothing, where it added an exact 0 before: the same sums.  The next
+//      view's copies land, and a barrier opens its sweep.
 // Every live output is formed over the same pairs in the same order with
-// the same bits as in the earlier design (K10's, one [cap][cap] scratch per
-// offset) at -fmad=false.  No atomics touch a sum, so every run gives the
-// same bits.
+// the same bits as in the one-sweep design (one thread per slot over all
+// cap candidates of a view, a [cap][cap] scratch per view) at -fmad=false.
+// No atomics touch a sum, so every run gives the same bits.
 //
-// What bounds it on the H100.  Issue and latency, at 64 (K11) and 77 (K12)
-// registers, which hold an SM to 4 and 3 blocks of 256 threads.  At the
-// flagship's shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6,
-// variant builds) K11 takes ~0.59 ms: staging, barriers and stores ~0.22
-// (the bytes alone, ~0.5 GB, bound it at 0.14), the scan ~0.09, the flush
-// and j side ~0.17 and the Horners ~0.10.  Per view a slot lists ~1.3
-// pairs, and the warp runs as long as its longest list: the flush's lanes
-// are busy ~30% of the time.  At capacity 32 half the threads hold dead
-// slots and the [32][32] scratch halves the blocks an SM holds.  Two views
-// a sweep, a warp-shared queue of the lists (all lanes running the Horners)
-// and scratch rows for fewer slots than cap were tried and lost; see
-// PERF.md.
+// What bounds it on the H100.  Instruction issue and latency: registers
+// (K11 47, K12 73) hold an SM to 5 and 3 blocks of 256 threads, and shared
+// memory holds K10 (39 registers) to 5.  At the flagship's shapes (NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md section 6, variant builds) K11 spent
+// ~0.22 ms in staging, barriers and stores, ~0.09 in the scan, ~0.17 in
+// the flush and j side and ~0.10 in the Horners.  Per view a slot lists
+// ~1.3 pairs, and the warp runs as long as its longest list: the flush's
+// lanes are busy ~30% of the time.  At capacity 32 half the threads hold
+// dead slots and the [32][32] scratch halves the blocks an SM holds.  Two
+// views a sweep, a warp-shared queue of the lists (all lanes running the
+// Horners) and scratch rows for fewer slots than cap were tried and lost;
+// see PERF.md.
 //
-// K12 is K11's design for one pair table: the scratch holds g = 2 dphi/dr^2
-// and, when the energy is asked, phi; the j side recomputes x_i - x_j (and
-// r^2 for the count).  Per view it adds -sum_j g d_a d_b to six stress sums
-// of slot i.  Its bytes are K11's less dF: the views in, five outputs and
-// their 13 j-partials out.
+// K10 keeps rho and the count: one value Horner, the scratch holds rho.
+// K11 keeps the gradient, from dF staged in .w.  K12 is K11's design for
+// one pair table: the scratch holds g = 2 dphi/dr^2 and, when the energy is
+// asked, phi; the j side recomputes x_i - x_j (and r^2 for the count).
+// Per view it adds -sum_j g d_a d_b to six stress sums of slot i.  Its
+// bytes are K11's less dF: the views in, five outputs and their 13
+// j-partials out.
 //
 // Rounding: compiled with -fmad=false (kernels.py), like eam_win.cu.  The
 // scan's fused r^2 is a filter only: every value is computed from the
@@ -129,143 +123,8 @@
 #include "eam_common.cuh"
 
 #define NOF 13
-#define MAX_CPB 8
-#define MAX_THREADS 256
-#define MAX_SMEM 232448   // shared memory a block can use (227 KB)
-
-// Staged arrays are [field][cap][cpb]; element (k, slot, cell).
-#define ST(arr, k, slot) arr[((k) * cap + (slot)) * cpb + cl]
-
-__global__ void __launch_bounds__(MAX_THREADS)
-eam_rho_half_kernel(const float* __restrict__ xi,
-                    const float* __restrict__ nbr,
-                    float* __restrict__ out_i, float* __restrict__ out_j,
-                    int count, float nr2, int nc, int cpb,
-                    const __grid_constant__ EamParams P) {
-    extern __shared__ float sm[];
-    const int cap = P.cap;
-    const int cl = threadIdx.x % cpb, s = threadIdx.x / cpb;
-    const int c = blockIdx.x * cpb + cl;
-    const bool ok = c < nc;
-    const size_t n = (size_t)nc;
-    float* xs = sm;                     // [3][cap][cpb] own cell
-    float* xv = xs + 3 * cap * cpb;     // [3][cap][cpb] view m
-    float* sc = xv + 3 * cap * cpb;     // [cap i][cap j][cpb] rho(r^2)
-    float x = 0.0f, y = 0.0f, z = 0.0f;
-    if (ok) {
-        x = xi[(3 * (size_t)s) * n + c];
-        y = xi[(3 * (size_t)s + 1) * n + c];
-        z = xi[(3 * (size_t)s + 2) * n + c];
-    }
-    ST(xs, 0, s) = x;
-    ST(xs, 1, s) = y;
-    ST(xs, 2, s) = z;
-    float rho = 0.0f, cnt = 0.0f;
-    for (int m = 0; m <= NOF; ++m) {
-        const float* v = xs;
-        if (m > 0) {
-            if (ok) {
-                const float* src = nbr + (((size_t)(m - 1) * cap + s) * 3) * n
-                    + c;
-                ST(xv, 0, s) = src[0];
-                ST(xv, 1, s) = src[n];
-                ST(xv, 2, s) = src[2 * n];
-            }
-            v = xv;
-        }
-        __syncthreads();
-        // as slot i of the own cell, against the cap slots of view m
-        float ri = 0.0f, ni = 0.0f;
-        for (int j = 0; j < cap; ++j) {
-            const float dx = x - ST(v, 0, j);
-            const float dy = y - ST(v, 1, j);
-            const float dz = z - ST(v, 2, j);
-            const float r2 = dx * dx + dy * dy + dz * dz;
-            float rv = 0.0f;
-            if (r2 < P.rcut2 && (m > 0 || s < j)) {
-                rv = poly_eval(P.rho_v, r2);
-                if (r2 < nr2) ni += 1.0f;
-            }
-            ri += rv;
-            sc[(s * cap + j) * cpb + cl] = rv;
-        }
-        __syncthreads();
-        // as slot j of view m, against the cap slots of the own cell
-        float rj = 0.0f, nj = 0.0f;
-        const float xj = ST(v, 0, s), yj = ST(v, 1, s), zj = ST(v, 2, s);
-        for (int i = 0; i < cap; ++i) {
-            rj += sc[(i * cap + s) * cpb + cl];
-            if (count) {
-                const float dx = ST(xs, 0, i) - xj;
-                const float dy = ST(xs, 1, i) - yj;
-                const float dz = ST(xs, 2, i) - zj;
-                const float r2 = dx * dx + dy * dy + dz * dz;
-                if (r2 < P.rcut2 && (m > 0 || i < s) && r2 < nr2)
-                    nj += 1.0f;
-            }
-        }
-        if (m == 0) {
-            rho = ri + rj;
-            cnt = ni + nj;
-        } else {
-            rho += ri;
-            cnt += ni;
-            if (ok) {
-                const size_t jo = ((size_t)(m - 1) * cap + s) * n + c;
-                out_j[jo] = rj;
-                if (count) out_j[(size_t)NOF * cap * n + jo] = nj;
-            }
-        }
-        __syncthreads();   // the next offset rewrites xv and sc
-    }
-    if (ok) {
-        out_i[(size_t)s * n + c] = rho;
-        if (count) out_i[((size_t)cap + s) * n + c] = cnt;
-    }
-}
-
-// Cells per block: the most (up to MAX_CPB, halving) whose threads and
-// shared memory (``per_cell`` floats a cell) fit; 0 if one cell does not.
-static int cells_per_block(int cap, int per_cell, size_t* smem) {
-    for (int cpb = MAX_CPB; cpb >= 1; cpb /= 2) {
-        const size_t bytes = (size_t)cpb * per_cell * sizeof(float);
-        if (cpb * cap <= MAX_THREADS && bytes <= MAX_SMEM) {
-            *smem = bytes;
-            return cpb;
-        }
-    }
-    return 0;
-}
-
-template <typename K>
-static cudaError_t prepare(K kernel, int cap, int per_cell, int* cpb,
-                           size_t* smem) {
-    *cpb = cells_per_block(cap, per_cell, smem);
-    if (*cpb == 0 || cap < 1) return cudaErrorInvalidConfiguration;
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*smem);
-}
-
-extern "C" int imd_eam_rho_half(const void* xi, const void* nbr, void* out_i,
-                                void* out_j, int count, float nr2,
-                                const EamParams* p, int nc, void* stream) {
-    const int cap = p->cap;
-    int cpb;
-    size_t smem;
-    cudaError_t err = prepare(eam_rho_half_kernel, cap, cap * (cap + 6),
-                              &cpb, &smem);
-    if (err != cudaSuccess) return (int)err;
-    eam_rho_half_kernel<<<(nc + cpb - 1) / cpb, cpb * cap, smem,
-                          STREAM(stream)>>>(
-        (const float*)xi, (const float*)nbr, (float*)out_i, (float*)out_j,
-        count, nr2, nc, cpb, *p);
-    return (int)cudaGetLastError();
-}
-
-// ---- K11 and K12 ----------------------------------------------------------
-
 #define HALF_MAX_THREADS 256
+#define HALF_MAX_SMEM 232448   // kernels.HALF_MAX_SMEM: the H100's 227 KB
 #define HALF_MAX_CAP 128     // kernels.HALF_MAX_CAP: j fits the list's 8 bits
 #define HALF_DEG 12          // kernels.WIN_DEG: the fits' value degree
 #define FULL 0xffffffffu
@@ -433,6 +292,12 @@ __device__ __forceinline__ Entry entry(const Half& h, int a, unsigned j,
     return q;
 }
 
+// r^2 of the staged x_i - x_j, unfused: the flush's operands and bits.
+__device__ __forceinline__ float r2_from(const float4& pi, const float4& pj) {
+    const float dx = pi.x - pj.x, dy = pi.y - pj.y, dz = pi.z - pj.z;
+    return dx * dx + dy * dy + dz * dz;
+}
+
 // Horner of D steps: the fits' own degree (HALF_DEG, 11 for a derivative).
 // poly_eval's NPOLY - 1 = 15 steps add 0 * t + 0 above it: the same bits.
 template <int D>
@@ -444,8 +309,12 @@ __device__ __forceinline__ float horner_d(const Poly& p, float x) {
     return v;
 }
 
+// What a kernel of the one body computes.
+enum HalfKind { HALF_RHO, HALF_FORCE, HALF_PAIR };   // K10, K11, K12
+
 // The sums of one slot: the running totals, and the i-side partials of
-// the sweep being flushed (K12's e, count and stress beside the force).
+// the sweep being flushed: the force (K11, K12), the value sum e (K10's
+// rho, K12's energy), the count (K10, K12) and K12's stress.
 struct Sums {
     float fx, fy, fz, e, cnt;
     float st[6];
@@ -453,14 +322,20 @@ struct Sums {
     float sp[6];
 };
 
-// A view's partials into the totals, in the order of the earlier design.
-template <bool PAIR>
+// A view's partials into the totals, in the order of the one-sweep design.
+template <int KIND>
 __device__ __forceinline__ void fold_view(Sums& u) {
+    if (KIND == HALF_RHO) {
+        u.e += u.ei;
+        u.cnt += u.ni;
+        u.ei = u.ni = 0.0f;
+        return;
+    }
     u.fx += -u.gx;
     u.fy += -u.gy;
     u.fz += -u.gz;
     u.gx = u.gy = u.gz = 0.0f;
-    if (PAIR) {
+    if (KIND == HALF_PAIR) {
         u.e += 0.5f * u.ei;
         u.cnt += u.ni;
         u.ei = u.ni = 0.0f;
@@ -472,21 +347,30 @@ __device__ __forceinline__ void fold_view(Sums& u) {
     }
 }
 
-// K11 (PAIR false: F from phi' + (dF_i + dF_j) rho') and K12 (PAIR true:
-// the pair force, phi/2 to each side when ``energy``, the count within nr2
+// K10 (HALF_RHO: rho, and the count within nr2 when ``count``), K11
+// (HALF_FORCE: F from phi' + (dF_i + dF_j) rho') and K12 (HALF_PAIR: the
+// pair force, phi/2 to each side when ``energy``, the count within nr2
 // when ``count``, the stress sums when out_s is given), for fits of value
-// degree at most DV (the wrappers hold them to it).
-template <bool PAIR, int DV>
+// degree at most DV (the wrappers hold them to it).  ``energy`` is 0 in
+// K10 and K11, ``count`` 0 in K11.
+template <int KIND, int DV>
 __device__ __forceinline__ void half_body(
     const float* __restrict__ xi, const float* __restrict__ nbr,
     const float* __restrict__ dF, const float* __restrict__ dFn,
     float* __restrict__ out_i, float* __restrict__ out_s,
     float* __restrict__ out_j, int energy, int count, float nr2, int nc,
     const EamParams& P) {
+    constexpr bool RHO = KIND == HALF_RHO, PAIR = KIND == HALF_PAIR;
+    constexpr bool GRAD = !RHO;   // a gradient per pair, forces out
     const Half h = carve_half(P, 1 + energy, nc);
     const int cap = h.cap, s = h.s;
     const size_t n = (size_t)nc;
-    const int ke = 3, kn = 3 + energy;   // output rows of e and nn
+    // output rows of e (K10's rho, K12's energy) and nn; e is field 0 of
+    // K10's scratch, field 1 of K12's.  K10 always keeps e, K12 when
+    // ``energy`` (tested where it is used: a flag held in a register cost
+    // K12 two)
+    const int ke = RHO ? 0 : 3, kn = RHO ? 1 : 3 + energy;
+    const int fe = RHO ? 0 : 1;
     const bool stress = PAIR && out_s != nullptr;
     const float dead = P.half.dead;
     const float lim2 = P.rcut2 * (1.0f + 0x1p-20f);
@@ -499,7 +383,7 @@ __device__ __forceinline__ void half_body(
         x = xi[(3 * (size_t)s) * n + h.c];
         y = xi[(3 * (size_t)s + 1) * n + h.c];
         z = xi[(3 * (size_t)s + 2) * n + h.c];
-        if (!PAIR) dfi = dF[(size_t)s * n + h.c];
+        if (KIND == HALF_FORCE) dfi = dF[(size_t)s * n + h.c];
     }
     copy_view(h, nbr, dFn, 0, 1, n);
     __syncthreads();
@@ -508,7 +392,7 @@ __device__ __forceinline__ void half_body(
     if (live) atomicMax(&h.lim[h.cl], s + 1);
     if (!__syncthreads_or(live)) {
         asm volatile("cp.async.wait_group 0;" ::: "memory");
-        zero_half(h, out_i, out_j, out_s, 3 + energy + count, n);
+        zero_half(h, out_i, out_j, out_s, kn + count, n);
         return;
     }
     const bool scans = __any_sync(FULL, live);
@@ -532,12 +416,15 @@ __device__ __forceinline__ void half_body(
                 const unsigned e1 = two ? lst[(k + 1) * blockDim.x] : e0;
                 const Entry q[2] = {entry(h, a, e0, x, y, z),
                                     entry(h, a, e1, x, y, z)};
-                float g[2], phi[2] = {0.0f, 0.0f};
+                // g: the gradient; v: the value (rho, or phi)
+                float g[2], v[2] = {0.0f, 0.0f};
 #pragma unroll
                 for (int t = 0; t < 2; ++t) {
-                    if (PAIR) {
+                    if (RHO) {
+                        v[t] = horner_d<DV>(P.rho_v, q[t].r2);
+                    } else if (PAIR) {
                         g[t] = horner_d<DV - 1>(P.pair_g, q[t].r2);
-                        if (energy) phi[t] = horner_d<DV>(P.pair_v, q[t].r2);
+                        if (energy) v[t] = horner_d<DV>(P.pair_v, q[t].r2);
                     } else {
                         g[t] = horner_d<DV - 1>(P.pair_g, q[t].r2)
                             + (dfi + q[t].dfj)
@@ -548,26 +435,30 @@ __device__ __forceinline__ void half_body(
                 for (int t = 0; t < 2; ++t) {
                     if (t == 1 && !two) break;
                     if (q[t].r2 < P.rcut2) {
-                        const float dx = q[t].dx, dy = q[t].dy, dz = q[t].dz;
-                        const float gdx = g[t] * dx, gdy = g[t] * dy,
-                                    gdz = g[t] * dz;
-                        u.gx += gdx;
-                        u.gy += gdy;
-                        u.gz += gdz;
-                        if (stress) {
-                            u.sp[0] += gdx * dx;
-                            u.sp[1] += gdy * dy;
-                            u.sp[2] += gdz * dz;
-                            u.sp[3] += gdy * dz;
-                            u.sp[4] += gdz * dx;
-                            u.sp[5] += gdx * dy;
+                        if (GRAD) {
+                            const float dx = q[t].dx, dy = q[t].dy,
+                                        dz = q[t].dz;
+                            const float gdx = g[t] * dx, gdy = g[t] * dy,
+                                        gdz = g[t] * dz;
+                            u.gx += gdx;
+                            u.gy += gdy;
+                            u.gz += gdz;
+                            if (stress) {
+                                u.sp[0] += gdx * dx;
+                                u.sp[1] += gdy * dy;
+                                u.sp[2] += gdz * dz;
+                                u.sp[3] += gdy * dz;
+                                u.sp[4] += gdz * dx;
+                                u.sp[5] += gdx * dy;
+                            }
                         }
-                        if (PAIR) {
-                            u.ei += phi[t];
+                        if (KIND != HALF_FORCE) {
+                            u.ei += v[t];
                             if (q[t].r2 < nr2) u.ni += 1.0f;
                         }
-                        scratch(h, 0, s, q[t].j) = g[t];
-                        if (energy) scratch(h, 1, s, q[t].j) = phi[t];
+                        if (GRAD) scratch(h, 0, s, q[t].j) = g[t];
+                        if (RHO || energy)
+                            scratch(h, fe, s, q[t].j) = v[t];
                         atomicOr(&column(h, s >> 5, q[t].j), 1u << (s & 31));
                     }
                 }
@@ -578,6 +469,9 @@ __device__ __forceinline__ void half_body(
         // for the sweep after next, and the next view's copies land
         if (h.slot) {
             const float4 pj = staged(h, a, s);
+            // K10: a listed pair is inside nn's radius when it is the
+            // cutoff's, as on the main path
+            const bool all_in = RHO && nr2 >= P.rcut2;
             float hx = 0.0f, hy = 0.0f, hz = 0.0f, ej = 0.0f, nj = 0.0f;
             for (int w = 0; w < h.words; ++w) {
                 unsigned bits = column(h, w, s);
@@ -585,6 +479,13 @@ __device__ __forceinline__ void half_body(
                 while (bits) {
                     const int i = (w << 5) + __ffs(bits) - 1;
                     bits &= bits - 1;
+                    if (RHO) {
+                        ej += scratch(h, 0, i, s);
+                        if (count && (all_in || r2_from(staged(h, 0, i), pj)
+                                                    < nr2))
+                            nj += 1.0f;
+                        continue;
+                    }
                     const float gij = scratch(h, 0, i, s);
                     const float4 pi = staged(h, 0, i);
                     const float dx = pi.x - pj.x;
@@ -601,6 +502,11 @@ __device__ __forceinline__ void half_body(
                 }
             }
             if (m == 0) {   // the own cell's partials, with its j side
+                if (RHO) {
+                    u.e = u.ei + ej;
+                    u.cnt = u.ni + nj;
+                    u.ei = u.ni = 0.0f;
+                }
                 if (PAIR) {
 #pragma unroll
                     for (int k = 0; k < 6; ++k) {
@@ -611,23 +517,29 @@ __device__ __forceinline__ void half_body(
                     u.cnt = u.ni + nj;
                     u.ei = u.ni = 0.0f;
                 }
-                u.fx = -u.gx + hx;
-                u.fy = -u.gy + hy;
-                u.fz = -u.gz + hz;
-                u.gx = u.gy = u.gz = 0.0f;
+                if (GRAD) {
+                    u.fx = -u.gx + hx;
+                    u.fy = -u.gy + hy;
+                    u.fz = -u.gz + hz;
+                    u.gx = u.gy = u.gz = 0.0f;
+                }
             } else {
                 if (h.mine) {
                     const size_t jo = ((size_t)(m - 1) * cap + s) * n + h.c;
-                    out_j[jo] = hx;
-                    out_j[plane + jo] = hy;
-                    out_j[2 * plane + jo] = hz;
+                    if (GRAD) {
+                        out_j[jo] = hx;
+                        out_j[plane + jo] = hy;
+                        out_j[2 * plane + jo] = hz;
+                    }
+                    if (RHO) out_j[ke * plane + jo] = ej;
                     if (PAIR && energy) out_j[ke * plane + jo] = 0.5f * ej;
-                    if (PAIR && count) out_j[kn * plane + jo] = nj;
+                    if (KIND != HALF_FORCE && count)
+                        out_j[kn * plane + jo] = nj;
                 }
                 if (s == 0) h.lim[a * h.cpb + h.cl] = 0;
             }
         }
-        if (m) fold_view<PAIR>(u);   // the view's partials
+        if (m) fold_view<KIND>(u);   // the view's partials
         if (m == NOF) break;
         land_view(h, a_next, dead);
         __syncthreads();
@@ -635,15 +547,27 @@ __device__ __forceinline__ void half_body(
     if (h.mine) {
         const size_t io = (size_t)s * n + h.c;
         const size_t cs = (size_t)cap * n;
-        out_i[io] = u.fx;
-        out_i[cs + io] = u.fy;
-        out_i[2 * cs + io] = u.fz;
-        if (PAIR && energy) out_i[ke * cs + io] = u.e;
-        if (PAIR && count) out_i[kn * cs + io] = u.cnt;
+        if (GRAD) {
+            out_i[io] = u.fx;
+            out_i[cs + io] = u.fy;
+            out_i[2 * cs + io] = u.fz;
+        }
+        if (RHO || energy) out_i[ke * cs + io] = u.e;
+        if (KIND != HALF_FORCE && count) out_i[kn * cs + io] = u.cnt;
         if (stress)
 #pragma unroll
             for (int k = 0; k < 6; ++k) out_s[k * cs + io] = u.st[k];
     }
+}
+
+__global__ void __launch_bounds__(HALF_MAX_THREADS)
+eam_rho_half_kernel(const float* __restrict__ xi,
+                    const float* __restrict__ nbr,
+                    float* __restrict__ out_i, float* __restrict__ out_j,
+                    int count, float nr2, int nc,
+                    const __grid_constant__ EamParams P) {
+    half_body<HALF_RHO, HALF_DEG>(xi, nbr, nullptr, nullptr, out_i, nullptr,
+                                  out_j, 0, count, nr2, nc, P);
 }
 
 __global__ void __launch_bounds__(HALF_MAX_THREADS)
@@ -653,8 +577,8 @@ eam_force_half_kernel(const float* __restrict__ xi,
                       const float* __restrict__ dFn,
                       float* __restrict__ out_i, float* __restrict__ out_j,
                       int nc, const __grid_constant__ EamParams P) {
-    half_body<false, HALF_DEG>(xi, nbr, dF, dFn, out_i, nullptr, out_j, 0, 0,
-                               0.0f, nc, P);
+    half_body<HALF_FORCE, HALF_DEG>(xi, nbr, dF, dFn, out_i, nullptr, out_j,
+                                    0, 0, 0.0f, nc, P);
 }
 
 __global__ void __launch_bounds__(HALF_MAX_THREADS)
@@ -662,11 +586,11 @@ pair_half_kernel(const float* __restrict__ xi, const float* __restrict__ nbr,
                  float* __restrict__ out_i, float* __restrict__ out_s,
                  float* __restrict__ out_j, int energy, int count, float nr2,
                  int nc, const __grid_constant__ EamParams P) {
-    half_body<true, HALF_DEG>(xi, nbr, nullptr, nullptr, out_i, out_s, out_j,
-                              energy, count, nr2, nc, P);
+    half_body<HALF_PAIR, HALF_DEG>(xi, nbr, nullptr, nullptr, out_i, out_s,
+                                   out_j, energy, count, nr2, nc, P);
 }
 
-// The launch shape of K11/K12 (nf scratch fields) as forces_win.half_tile
+// The launch shape of K10-K12 (nf scratch fields) as forces_win.half_tile
 // makes it: whole warps of cap * cpb threads and half_smem's bytes within
 // the H100's 227 KB.
 static bool half_ok(const EamParams& P, int nf) {
@@ -675,7 +599,7 @@ static bool half_ok(const EamParams& P, int nf) {
     if (cap < 1 || cap > HALF_MAX_CAP || t.cpb < 1) return false;
     const int threads = (cap * t.cpb + 31) / 32 * 32;
     return t.threads == threads && threads <= HALF_MAX_THREADS
-        && t.smem <= MAX_SMEM
+        && t.smem <= HALF_MAX_SMEM
         && (size_t)t.smem == half_smem(cap, t.cpb, threads, nf);
 }
 
@@ -685,6 +609,20 @@ static cudaError_t prepare_half(K kernel, const EamParams& P, int nf) {
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 P.half.smem);
+}
+
+extern "C" int imd_eam_rho_half(const void* xi, const void* nbr, void* out_i,
+                                void* out_j, int count, float nr2,
+                                const EamParams* p, int nc, void* stream) {
+    const HalfTile& t = p->half;
+    count = count ? 1 : 0;
+    cudaError_t err = prepare_half(eam_rho_half_kernel, *p, 1);
+    if (err != cudaSuccess) return (int)err;
+    eam_rho_half_kernel<<<(nc + t.cpb - 1) / t.cpb, t.threads, t.smem,
+                          STREAM(stream)>>>(
+        (const float*)xi, (const float*)nbr, (float*)out_i, (float*)out_j,
+        count, nr2, nc, *p);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int imd_eam_force_half(const void* xi, const void* nbr,

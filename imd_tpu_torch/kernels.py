@@ -58,7 +58,7 @@ WIN_MAX_SMEM = 232448
 WIN_LIST_SLACK = 64
 HALF_MAX_CAP = 128    # capacity the half-stencil kernels take: one cell's
                       # [cap][cap] scratches in shared memory (eam_half.cu)
-# K11/K12's launch shape (ops/forces_win.py:half_tile): at most
+# K10-K12's launch shape (ops/forces_win.py:half_tile): at most
 # HALF_MAX_THREADS threads a block in at most HALF_MAX_SMEM bytes
 HALF_MAX_THREADS = 256
 HALF_MAX_SMEM = WIN_MAX_SMEM
@@ -94,7 +94,7 @@ class WinTile(ctypes.Structure):
 
 
 class HalfTile(ctypes.Structure):
-    """Mirrors ``struct HalfTile`` in eam_common.cuh: K11/K12's launch
+    """Mirrors ``struct HalfTile`` in eam_common.cuh: K10-K12's launch
     shape and dead-slot threshold (ops/forces_win.py:half_tile)."""
     _fields_ = [*((name, ctypes.c_int) for name in (
         "cpb", "threads", "smem")), ("dead", ctypes.c_float)]

@@ -46,9 +46,10 @@ K10 ``eam_rho_half`` and K11 ``eam_force_half`` (csrc/eam_half.cu), beside
 their plain versions ``eam_rho_half_plain`` and ``eam_force_half_plain``.
 Their outputs are UNMASKED, as on the TPU: only live slots of the assembled
 values are meaningful, and ``eam_kernels_cl_split`` masks them.  A dead
-slot's values are unspecified: the plain versions and K10 pair two dead
-slots of one cell (both at SENTINEL_DEAD, r^2 = 0), K11 (and K12) skip
-dead slots.  K11/K12's launch shape comes from ``forces_win.half_tile``.
+slot's values are unspecified: the plain versions pair two dead slots of
+one cell (both at SENTINEL_DEAD, r^2 = 0), the kernels K10-K12 skip dead
+slots and write zeros there.  K10-K12's launch shape comes from
+``forces_win.half_tile``.
 The TPU's lane padding (``_split_geometry``, ``block``, ``unroll``) has no
 counterpart: those arguments are taken and ignored.
 
@@ -490,7 +491,10 @@ def _check_half_inputs(xi, nbr, grid):
 
 def eam_rho_half(xi, nbr, eam, grid, count_neighbors: bool = False,
                  neigh_r2: float = 0.0):
-    """K10 wrapper: ``eam_rho_half_plain``'s (acc_i, acc_j)."""
+    """K10 wrapper: ``eam_rho_half_plain``'s (acc_i, acc_j) at every
+    live slot.  A dead slot's values are unspecified: the kernel skips
+    slots at SENTINEL_DEAD (and writes zeros there) where the plain version
+    pairs two dead slots of one cell."""
     if not xi.is_cuda:
         if xi.device.type != "cpu":
             raise TypeError(f"unsupported device {xi.device}")
@@ -505,7 +509,8 @@ def eam_rho_half(xi, nbr, eam, grid, count_neighbors: bool = False,
     err = kernels.lib().imd_eam_rho_half(
         xi.data_ptr(), nbr.data_ptr(), acc_i.data_ptr(), acc_j.data_ptr(),
         int(bool(count_neighbors)), _nr2(grid, neigh_r2),
-        _params_for(eam, grid, cap), nc, kernels.stream_ptr(xi.device))
+        _params_for(eam, grid, cap, half="rho"), nc,
+        kernels.stream_ptr(xi.device))
     kernels.check(err, "eam_rho_half")
     kernels.LAUNCHES["eam_rho_half"] += 1
     return acc_i, acc_j
@@ -562,9 +567,10 @@ def eam_r_pass(xi, nbr, eam, grid, count_neighbors: bool = False,
                neigh_r2: float = 0.0, block: int = 128, unroll: int = 1):
     """The R pass of the split (K10, assembled): UNMASKED (rho, nneigh)
     [cap,NC]; nneigh is zero unless ``count_neighbors``.  Live slots hold
-    the host density and the count within ``neigh_r2``; dead slots hold
-    what their pairs with other dead slots give.  ``block``/``unroll`` are
-    the TPU's and ignored."""
+    the host density and the count within ``neigh_r2``; a dead slot's
+    values are unspecified (K10 skips dead slots and writes zeros; the
+    plain version pairs two dead slots of one cell), so the caller masks
+    them.  ``block``/``unroll`` are the TPU's and ignored."""
     return _rho_nn(grid.dims, *eam_rho_half(xi, nbr, eam, grid,
                                             count_neighbors, neigh_r2))
 

@@ -286,13 +286,14 @@ def win_tile(cap: int, dims, nt: int = 1):
     raise AssertionError(f"no tile fits capacity {cap}")
 
 
-# scratch fields a pair keeps for K11/K12's j side, by launch kind: the
-# gradient, and phi when K12 computes the energy
-HALF_FIELDS = {"force": 1, "pair": 1, "pair_energy": 2}
+# scratch fields a pair keeps for K10-K12's j side, by launch kind: rho
+# (K10; the count needs none), the gradient (K11, K12), and phi when K12
+# computes the energy
+HALF_FIELDS = {"rho": 1, "force": 1, "pair": 1, "pair_energy": 2}
 
 
 def half_smem(cap: int, cpb: int, threads: int, nf: int) -> int:
-    """Shared-memory bytes of a K11/K12 block (eam_half.cu:half_smem): the
+    """Shared-memory bytes of a K10-K12 block (eam_half.cu:half_smem): the
     own cell and two staged views as float4 per cell, ``nf`` scratches of
     cap rows of cap * cpb + 1 floats, the column masks per cell, a limit
     per staged cell, and the uint16 lists of cap entries."""
@@ -303,8 +304,9 @@ def half_smem(cap: int, cpb: int, threads: int, nf: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def half_tile(cap: int, kind: str):
-    """Launch shape of K11 (``kind`` "force") and K12 ("pair", or
-    "pair_energy" when it computes the energy) at capacity ``cap``, a fixed
+    """Launch shape of K10 (``kind`` "rho"), K11 ("force") and K12
+    ("pair", or "pair_energy" when it computes the energy) at capacity
+    ``cap``, a fixed
     rule: the most cells a block, a power of two, whose cap * cells
     threads fit HALF_MAX_THREADS, halved until the shared memory fits
     HALF_MAX_SMEM; threads rounded up to whole warps.  Slots with x at or
@@ -324,8 +326,7 @@ def half_tile(cap: int, kind: str):
 
 
 def _check_win_degree(host) -> None:
-    """The stencil kernels' Horners (K1-K9, K11, K12) stop at degree
-    WIN_DEG."""
+    """The stencil kernels' Horners (K1-K12) stop at degree WIN_DEG."""
     for c, _, _ in host:
         deg = max((k for k, v in enumerate(c) if v != 0.0), default=0)
         if deg > kernels.WIN_DEG:
@@ -339,7 +340,7 @@ def _eam_params(rho_h, pair_h, rcut2, h, pbc, dims, cap, nt=0, half=None):
     ``rho_h``/``pair_h`` None leaves their polynomials empty (the multi-type
     kernels read theirs from ``_mt_table``); ``nt`` > 0 fills the
     full-stencil kernels' tile for ``nt`` species, ``half`` (a kind of
-    ``half_tile``) K11/K12's launch shape; either holds the fits to their
+    ``half_tile``) K10-K12's launch shape; either holds the fits to their
     degree."""
     p = kernels.EamParams()
 
@@ -416,7 +417,7 @@ def _pair_params(pot, grid, cap, half=None):
 def _params_for(eam, grid, cap, nt=0, half=None):
     """EamParams of a single-species set; of the geometry alone for
     ``eam`` None.  ``nt`` > 0 adds the full-stencil kernels' tile for
-    ``nt`` species, ``half`` K11/K12's launch shape of that kind (either
+    ``nt`` species, ``half`` K10-K12's launch shape of that kind (either
     holds the fits to their degree)."""
     h = tuple(float(v) for v in grid.box.h.reshape(-1))
     rho_h, pair_h = (None, None) if eam is None else \

@@ -36,6 +36,10 @@ from imd_tpu_torch import convert, kernels
 from imd_tpu_torch.ops import forces_fast as t_ff
 from imd_tpu_torch.ops import forces_pallas as t_fp
 from imd_tpu_torch.ops import forces_win as t_win
+from imd_tpu_torch.ops import geometry as t_geom
+from imd_tpu_torch.models import potential as t_pot
+from imd_tpu_torch.scene import make_scene as t_make_scene
+from imd_tpu_torch.utils.generate import fcc as t_fcc
 from imd_tpu_torch.ops.forces import ALL_OFFSETS, HALF_OFFSETS
 
 TOL = 1e-9
@@ -234,6 +238,53 @@ def test_split_equals_the_windowed_engine(pbc):
     for got, want in ((F, Fw), (rho, rho_w)):
         assert float((got - want).abs().max()) <= 1e-12 * float(
             want.abs().max())
+
+
+@pytest.mark.parametrize("pbc", sorted(PBC))
+def test_cl_split_masks_the_dead_slots_away(pbc, monkeypatch):
+    """The R pass's dead-slot outputs are unspecified (K10 skips dead
+    slots and writes zeros, the plain version pairs two dead slots of one
+    cell): with the plain version's dead-slot outputs replaced by zeros,
+    as K10 writes them, eam_kernels_cl_split's masked F, rho and nn do not
+    change.  The port alone (float64, no JAX), on the fcc 5x4x4 lattice
+    jittered from a seed (grid (3,2,2), capacity 48: dead slots in every
+    cell)."""
+    torch.set_num_threads(1)
+    pos, _, diag = t_fcc((5, 4, 4), 4.05)
+    pos = pos + np.random.default_rng(3).normal(scale=0.1, size=pos.shape)
+    box = t_geom.Box.create([diag[0], 0, 0], [0, diag[1], 0],
+                            [0, 0, diag[2]], pbc=PBC[pbc],
+                            dtype=torch.float64)
+    grid = t_geom.choose_grid(box, 5.0, skin=0.5, n_atoms=len(pos))
+    grid = t_geom.with_capacity(grid, t_geom.measured_capacity(
+        grid, pos, dtype=np.float64))
+    scene = t_make_scene(grid, pos, dtype=torch.float64, device="cpu")
+    eam = t_pot.eam_to_fastpoly(t_pot.analytic_eam(
+        r_cut=5.0, r0=4.05 / math.sqrt(2.0), E_c=3.39), deg=12)
+    xi, nbr, mask = t_fp.prep_neighbors(scene)
+    assert bool((~mask).sum(0).min() >= 2)
+    want = t_fp.eam_kernels_cl_split(xi, nbr, mask, eam, grid,
+                                     count_neighbors=True)
+    plain = t_fp.eam_rho_half_plain
+    dead_i = xi[:, 0] >= t_win.SENTINEL_DEAD / 2              # [cap, NC]
+    dead_j = nbr[:, :, 0] >= t_win.SENTINEL_DEAD / 2          # [13, cap, NC]
+    seen = {}
+
+    def zeroed(*args, **kw):
+        acc_i, acc_j = plain(*args, **kw)
+        seen["nonzero"] = bool(acc_i[:, dead_i].any()
+                               or acc_j[:, dead_j].any())
+        return (acc_i.masked_fill(dead_i, 0.0),
+                acc_j.masked_fill(dead_j, 0.0))
+
+    monkeypatch.setattr(t_fp, "eam_rho_half_plain", zeroed)
+    rho_z, _ = t_fp.eam_r_pass(xi, nbr, eam, grid, True)
+    assert seen["nonzero"]
+    assert not rho_z[~mask].any()
+    got = t_fp.eam_kernels_cl_split(xi, nbr, mask, eam, grid,
+                                    count_neighbors=True)
+    for name, g, w in zip(("F", "rho", "nn"), got, want):
+        assert torch.equal(g, w), name
 
 
 def test_half_wrappers_check_their_inputs():

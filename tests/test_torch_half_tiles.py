@@ -1,10 +1,10 @@
-"""The launch shape of the half-stencil kernels K11/K12 (csrc/eam_half.cu),
+"""The launch shape of the half-stencil kernels K10-K12 (csrc/eam_half.cu),
 on the CPU.
 
 ``forces_win.half_tile`` chooses, per capacity and kind, the cells a
 block, the threads and the shared memory; the C entries check it
 (``half_ok``) and launch with it.  These tests hold every shape the
-wrappers can ask for (capacity 1 to the limit, K11 and K12 with and
+wrappers can ask for (capacity 1 to the limit, K10, K11, and K12 with and
 without the energy) to the rules of ``half_ok`` and to the H100's 227 KB,
 walk the kernels' sweep loop and the threads' shared memory indices, and
 check the wrappers' limits.  No JAX.
@@ -18,7 +18,7 @@ from imd_tpu_torch.ops import forces_pallas as fp
 from imd_tpu_torch.ops import forces_win as win
 from imd_tpu_torch.ops.geometry import Box, CellGrid
 
-KINDS = ("force", "pair", "pair_energy")
+KINDS = ("rho", "force", "pair", "pair_energy")
 NOF = fp.NOF
 
 
@@ -78,9 +78,11 @@ def test_every_half_tile_fits_and_meets_half_ok(kind):
 
 
 def test_main_path_half_tiles():
-    """K11 on the flagship (grid 42^3, cap 16), K12 on the LJ state at cap
-    16, and on phase 7's grown grid (cap 24 and 32), as PERF.md states
-    them."""
+    """K10 and K11 on the flagship (grid 42^3, cap 16; K10's one scratch
+    field gives K11's shape), K12 on the LJ state at cap 16, and on phase
+    7's grown grid (cap 24 and 32), as PERF.md states them."""
+    t = win.half_tile(16, "rho")
+    assert (t.cpb, t.threads, t.smem) == (16, 256, 38144)
     t = win.half_tile(16, "force")
     assert (t.cpb, t.threads, t.smem) == (16, 256, 38144)
     t = win.half_tile(16, "pair_energy")
@@ -125,6 +127,8 @@ def test_every_sweep_reads_its_view_once_double_buffered():
 
 
 @pytest.mark.parametrize("cap,kind", [
+    (1, "rho"), (16, "rho"), (17, "rho"), (32, "rho"), (33, "rho"),
+    (128, "rho"),
     (1, "force"), (2, "pair"), (3, "force"), (5, "pair_energy"),
     (8, "force"), (12, "pair"), (16, "force"), (16, "pair_energy"),
     (17, "pair"), (24, "pair_energy"), (31, "pair_energy"), (32, "force"),
@@ -164,10 +168,10 @@ def test_padding_lanes_read_nothing(cap, kind):
 def test_wrappers_refuse_cap_129_and_fits_above_degree_12():
     """Above HALF_MAX_CAP the wrappers raise ValueError before any launch
     (the input check runs on CPU tensors too), and so does the launch
-    rule; K11/K12's Horners stop at degree 12, so a fit above it raises
-    too.  The params the kernels take carry the rule's shape, are built
-    once per fit, grid and kind (cached), and leave K10's params, which
-    carry no shape, apart."""
+    rule; K10-K12's Horners stop at degree 12, so a fit above it raises
+    too.  The params the kernels take carry the rule's shape (K10's
+    ``half_tile(cap, "rho")``), are built once per fit, grid and kind
+    (cached), and leave the params without a shape apart."""
     lim = kernels.HALF_MAX_CAP
     grid = CellGrid(box=Box.create([12.0, 0, 0], [0, 12.0, 0],
                                    [0, 0, 12.0]),
@@ -198,3 +202,20 @@ def test_wrappers_refuse_cap_129_and_fits_above_degree_12():
     assert bytes(base.half) == bytes(kernels.HalfTile())
     with pytest.raises(ValueError, match="degree 13"):
         win._pair_params(Fit(13), g16, 16, "pair")
+
+    class Eam:
+        def __init__(self, deg):
+            self.rho = self.pair = Fit(deg)
+
+    eam = Eam(12)
+    for cap in (16, 17, 32, lim):
+        g = grid.replace(capacity=cap)
+        p = win._params_for(eam, g, cap, half="rho")
+        assert bytes(p.half) == bytes(win.half_tile(cap, "rho"))
+        assert p.cap == cap
+        assert p is win._params_for(eam, g, cap, half="rho")
+    base = win._params_for(eam, g16, 16)
+    assert base is not win._params_for(eam, g16, 16, half="rho")
+    assert bytes(base.half) == bytes(kernels.HalfTile())
+    with pytest.raises(ValueError, match="degree 13"):
+        win._params_for(Eam(13), g16, 16, half="rho")
