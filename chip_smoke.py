@@ -108,9 +108,32 @@ plain version on the last state (the grid grown to cap 32), give the same
 bits twice there, and is timed there beside its plain version and its
 bound; the phase counts K12's launches by capacity.
 
+Phase 8 runs examples/ablation/run1m/ablation_1m.imd as written (the TMM
+laser at 800 nm and 2e17 W/m^2, NRB, FILTER, ``ttm_solver implicit`` with
+10 substeps, 256 TTM cells, capacity 24) through ``cli.main`` in float32,
+on a copy that differs only in maxsteps/startstep (20 steps from step 285,
+across the pulse's peak at step ~295), eng_int 10, checkpt_int 20 and
+filter_int 10, and whose start.chkpt holds 16 more atoms with new ids,
+isolated in the front vacuum (x < 600 A), launch counters set to 0 just
+before: rc 0, finite .eng and .laser, .chkpt/.itr/.nrb/.ttm written, K1/K2
+once a step, K4/K5 once per observe(), K3 three per rebin and nothing else;
+FILTER deletes exactly the 16 atoms; NRB holds the start file's layer
+within alat/4 of the film's x-max, each atom with its 4 inward neighbours,
+and the step reads the host as often as the same file without nrb_* (run
+for 2 steps); the implicit solver runs 10 substeps a step with no CFL
+read; on the last TTM grid the TMM solve in float32 (complex64) equals the
+float64 one (refl/trans/absorb to 1e-5, the source to 1e-4 of its
+maximum), its absorbed flux is below I_t and within 5e-3 of (1 - R - T)
+I_t, tests/test_tmm.py's 320-cell thick film meets the same flux checks
+in float32, and .laser's absorbed fluence rises; then K1/K2/K4/K5 are
+held against their plain versions on the run's last state.
+
 Prints one JSON line each for the four main paths (one and two species,
-"split", "ab"), the bench configuration, the two driver runs and the LJ
-driver run, one
+"split", "ab"), the bench configuration, the two driver runs, the LJ
+driver run and the ablation run (atom-steps/s, ms per step, CUDA-event
+phase times with calc_ttm and nrb, calc_ttm by part and its CUDA kernels
+under torch.profiler, ms per FILTER application, the set-up seconds of
+init_nrb and the TMM tables, peak memory, launches), one
 {"kernels": [...]} line (with each kernel's bound: the larger of its FLOPs
 over the float32 peak and its bytes over the memory rate, counted from
 this run's inputs, and its share, bound / ms; the half-stencil passes'
@@ -118,7 +141,8 @@ bytes from their live slots and view entries, since a dead slot's outputs
 are unspecified; ptxas' registers, spill bytes and static shared memory;
 for the full-stencil rows and K10-K12 the launch tile and its dynamic
 shared memory at the table's shapes; K12's row also its launches by
-capacity and its time at cap 24 and on phase 7's last state; B8's
+capacity and its time at cap 24 and on phase 7's last state; the rows
+of K1-K5 also their launches in phase 8; B8's
 rows carry K4/K5's times), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
@@ -428,6 +452,334 @@ def run_driver(dev_name: str, smi: str, ntypes: int = 1):
             "device": dev_name, "nvidia_smi": smi}
     print(json.dumps({"driver_alloy" if mt else "driver": report}))
     report["eng"] = eng
+    return report, sim, state
+
+
+ABL_START = 285     # run1m's pulse peaks at t0 = 300 fs, step ~295
+ABL_STEPS = 20
+ABL_N_SUB = 10      # ttm_substeps of ablation_1m.imd
+# the tags of ablation_1m.imd that the ablation phase rewrites: 20 steps
+# from step 285, .eng every 10, a checkpoint at step 300, FILTER every 10
+ABL_TAGS = (("maxsteps 10000", f"maxsteps {ABL_START + ABL_STEPS}\n"
+             f"startstep {ABL_START}"),
+            ("eng_int 50", "eng_int 10"), ("checkpt_int 0", "checkpt_int 20"),
+            ("filter_int 0", "filter_int 10"))
+# 16 isolated atoms in the front vacuum (x < filter_min_x 600, > 40 A apart)
+ABL_VAPOUR = [(x, y, z) for x in (100.0, 250.0, 400.0, 550.0)
+              for y in (30.0, 90.0) for z in (30.0, 90.0)]
+# the thick film of tests/test_tmm.py:170 (320 cells of 10 A, 10 vacuum,
+# eps -60 + 40i)
+THICK_NX, THICK_NVAC, THICK_EPS = 320, 10, complex(-60.0, 40.0)
+
+
+def ablation_text(drop_nrb: bool = False, steps: int = ABL_STEPS) -> str:
+    """examples/ablation/run1m/ablation_1m.imd with ABL_TAGS rewritten (and
+    ``steps`` steps); with ``drop_nrb`` also without its nrb_* lines."""
+    text = (RUN1M / "ablation_1m.imd").read_text()
+    for a, b in ABL_TAGS:
+        check(a in text, f"ablation_1m.imd holds {a!r}")
+        text = text.replace(a, b)
+    text = text.replace(f"maxsteps {ABL_START + ABL_STEPS}",
+                        f"maxsteps {ABL_START + steps}")
+    if drop_nrb:
+        text = "\n".join(ln for ln in text.splitlines()
+                         if not ln.startswith("nrb_")) + "\n"
+    return text
+
+
+def tmm_checks(sim, state) -> dict:
+    """The TMM solver on the card, on the ablation run's last TTM grid at
+    the pulse's peak: the float32 (complex64) solve against the float64
+    (complex128) one on the same grid (refl, trans, absorb to 1e-5, the
+    source to 1e-4 of its maximum), and in float32 the absorbed flux
+    sum(qabs dx) below I_t and within 5e-3 of (1 - R - T) I_t; then
+    tests/test_tmm.py's 320-cell thick film in float32 through the same
+    flux checks, with its absorption cutoff inside the film.  A TF32 or
+    otherwise reduced-precision product in the prefix scan fails them."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch.models import tmm as t_tmm
+    g, tp = state.ttm_grid, sim.ttm_params
+    tmm64 = t_tmm.make_tmm_params(sim.cfg.tmm, torch.float64, "cuda")
+    t_si = sim.cfg.tmm.t0_s
+
+    def solve(tmm, dtype):
+        f = {k: getattr(g, k).to(dtype) for k in ("dens", "temp", "md_temp",
+                                                   "Z", "ne")}
+        return t_tmm.tmm_solve(tmm, g.natoms, f["dens"], f["temp"],
+                               f["md_temp"], f["Z"], f["ne"], tp.fd_h_x,
+                               torch.tensor(t_si, dtype=dtype,
+                                            device="cuda"),
+                               fd_min_atoms=tp.fd_min_atoms,
+                               rho_min=tp.rho_min)
+
+    def flux(src_imd, width_a):
+        """sum(qabs dx) in W/m^2 from a source in IMD units."""
+        return float(src_imd.double().sum()) / t_tmm.WM3_TO_IMD \
+            * width_a * 1e-10
+
+    r32 = solve(sim.tmm_params, torch.float32)
+    r64 = solve(tmm64, torch.float64)
+    check(bool(r32["laser_active"]) and bool(r64["laser_active"])
+          and bool(r32["ok"]), "TMM: the pulse is on and the film absorbs")
+    out = {f"d_{k}": abs(float(r32[k]) - float(r64[k]))
+           for k in ("refl", "trans", "absorb")}
+    src64 = r64["source"]
+    out["d_source_rel"] = float((r32["source"].double() - src64).abs().max()
+                                / src64.abs().max())
+    it = float(r32["I_t"])
+    absorbed = flux(r32["source"], tp.fd_h_x)
+    want = (1.0 - float(r32["refl"]) - float(r32["trans"])) * it
+    out.update(refl=float(r32["refl"]), trans=float(r32["trans"]),
+               absorb=float(r32["absorb"]), ecut=int(r32["ecut"]),
+               I_t=it, absorbed_flux=absorbed,
+               flux_rel_err=abs(absorbed - want) / want)
+    print(f"TMM on the ablation run's last grid: R {out['refl']:.6f}, "
+          f"ecut {out['ecut']}; float32 vs float64 |d refl| "
+          f"{out['d_refl']:.3e}, |d trans| {out['d_trans']:.3e}, |d absorb| "
+          f"{out['d_absorb']:.3e}, |d source| / max {out['d_source_rel']:.3e}"
+          f"; sum(qabs dx) / ((1-R-T) I_t) - 1 = {out['flux_rel_err']:.3e}")
+    check(max(out["d_refl"], out["d_trans"], out["d_absorb"]) <= 1e-5,
+          "TMM refl/trans/absorb: float32 against float64")
+    check(out["d_source_rel"] <= 1e-4, "TMM source: float32 against float64")
+    check(absorbed < it and out["flux_rel_err"] <= 5e-3,
+          "TMM absorbed flux in float32")
+
+    # the thick film: ~40 optical depths, prefix entries up to e^{+20}
+    eps = torch.ones(THICK_NX, dtype=torch.complex64, device="cuda")
+    eps[THICK_NVAC:] = THICK_EPS
+    on = torch.arange(THICK_NX, device="cuda") >= THICK_NVAC
+    k0 = float(np.float32(sim.tmm_params.k0_per_a))
+    it_t = torch.tensor(1e16, dtype=torch.float32, device="cuda")
+    res = t_tmm.solve_layers(k0, eps, on, 10.0, it_t, 20.0)
+    absorbed = float(res["qabs_wm3"].double().sum()) * 10.0 * 1e-10
+    want = 1e16 * float(res["absorb"])
+    out["thick_film"] = {"ecut": int(res["ecut"]),
+                         "refl": float(res["refl"]),
+                         "absorbed_flux": absorbed,
+                         "flux_rel_err": abs(absorbed - want) / want}
+    print(f"TMM thick film (float32): {out['thick_film']}")
+    check(int(res["ecut"]) < THICK_NX - 1 and absorbed < 1e16
+          and out["thick_film"]["flux_rel_err"] <= 5e-3
+          and 0.0 < float(res["refl"]) < 1.0, "TMM thick film in float32")
+    return out
+
+
+def calc_ttm_parts(sim, state) -> dict:
+    """Where calc_ttm's time goes, on the ablation run's last state (CUDA
+    events, 5 calls after one warm-up each): one calc_ttm with the run's
+    settings (10 implicit substeps, the TMM at each), and one substep's
+    parts: do_tmm, diff_step_implicit and fill_mesh.  Then one calc_ttm
+    under torch.profiler: the CUDA kernels it launches and their summed
+    device time, whence the device's idle share in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imd_tpu_torch import units
+    from imd_tpu_torch.models import tmm as t_tmm
+    from imd_tpu_torch.models import ttm as t_ttm
+    from imd_tpu_torch.ops import forces_win as win
+    from imd_tpu_torch.ops.fused_step import scene_to_cl
+
+    cl = scene_to_cl(state.scene)
+    _, nn = win.eam_rho(cl.xi, cl.alive, sim.eam_run, sim.grid)
+    tp, g, dt = sim.ttm_params, state.ttm_grid, sim.cfg.timestep
+    x = cl.xi[:, 0, :].reshape(-1)
+    atoms = (x, tuple(cl.mom[:, c, :].reshape(-1) for c in range(3)),
+             cl.mass.reshape(-1), cl.alive.reshape(-1))
+    fdi = torch.full((x.numel(),), -1, dtype=torch.int32, device="cuda")
+    t = torch.full((), (state.step - 1) * dt, dtype=x.dtype, device="cuda")
+
+    def whole():
+        return t_ttm.calc_ttm(g, atoms, tp, sim.eos, nn.reshape(-1), fdi, dt,
+                              t, tmm_params=sim.tmm_params)
+
+    tau = dt / tp.n_sub
+    out = {"calc_ttm_ms": time_ms(whole, 5),
+           "do_tmm_ms": time_ms(lambda: t_tmm.do_tmm(
+               g, tp, sim.tmm_params, t * units.IMD_TIME_S), 5),
+           "diff_step_implicit_ms": time_ms(lambda: t_ttm.diff_step_implicit(
+               g, tp, tau, tp.n_sub, True), 5),
+           "fill_mesh_ms": time_ms(lambda: t_ttm.fill_mesh(g, tp, sim.eos,
+                                                           True), 5)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        whole()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in kern)
+    out["profiled_kernels"] = sum(e.count for e in kern)
+    out["profiled_device_ms"] = dev_us / 1e3
+    out["idle_share"] = (1.0 - out["profiled_device_ms"] / out["calc_ttm_ms"]
+                         if dev_us > 0 else None)
+    print(f"calc_ttm on the ablation run's last state: {out}")
+    return out
+
+
+def run_ablation(dev_name: str, smi: str):
+    """Phase 8: examples/ablation/run1m/ablation_1m.imd through
+    ``python -m imd_tpu_torch -p`` in process, in float32, on a copy that
+    differs only in ABL_TAGS and in its start.chkpt (the run1m film and
+    ABL_VAPOUR's 16 atoms with new ids): the TMM laser, NRB, FILTER and
+    the implicit solver of the file as written, through the pulse's peak.
+    Counters and launch counts are set to 0 just before.  Checks the run,
+    its files and launches, FILTER (exactly the 16 atoms gone), NRB (its
+    boundary layer, and the host reads a step of the same file without
+    nrb_*), the implicit solver's substeps and the TMM (tmm_checks).
+    Prints the ``ablation`` line; returns it, the Simulation and the last
+    state."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import __main__ as cli
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.io.chkpt import read_chkpt, write_chkpt
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    with tempfile.TemporaryDirectory(prefix="imd_abl_") as tmp:
+        tmp = Path(tmp)
+        d0 = read_chkpt(str(RUN1M / "start.chkpt"))
+        n_film = len(d0.number)
+        film_ids = np.sort(d0.number)
+        nv = len(ABL_VAPOUR)
+        vap_ids = np.arange(nv) + int(d0.number.max()) + 1
+        d1 = dataclasses.replace(
+            d0, number=np.concatenate([d0.number, vap_ids]),
+            type=np.concatenate([d0.type, np.zeros(nv, d0.type.dtype)]),
+            mass=np.concatenate([d0.mass, np.full(nv, d0.mass[0])]),
+            pos=np.concatenate([d0.pos, np.asarray(ABL_VAPOUR)]),
+            vel=np.concatenate([d0.vel, np.zeros((nv, 3))]),
+            data=np.concatenate([d0.data.reshape(n_film, -1),
+                                 np.zeros((nv, d0.data.reshape(
+                                     n_film, -1).shape[1]))]))
+        write_chkpt(str(tmp / "start.chkpt"), d1, binary=True, double=True)
+        for name in ("pair.pt", "embed.pt", "rho.pt"):
+            (tmp / name).symlink_to(RUN1M / name)
+        (tmp / "abl.imd").write_text(ablation_text())
+        # NRB's layer: the atoms within alat/4 of the film's x-max
+        alat = 4.05
+        x = d0.pos[:, 0]
+        n_bnd_want = int((x > x.max() - alat / 4.0).sum())
+
+        timer = CudaPhaseTimer()
+        runs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["-p", str(tmp / "abl.imd")], timer=timer,
+                      on_phase=lambda sim, st: runs.append((sim, st)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        phases = timer.totals_ms()
+        check(rc == 0 and len(runs) == 1, "ablation run")
+        sim, state = runs[0]
+        c = sim.counters
+        steps_run = c.steps
+        check(state.step == ABL_START + ABL_STEPS and steps_run >= ABL_STEPS,
+              f"ablation: {steps_run} steps to step {state.step}")
+        n_obs = sim.n_observe
+        check(n_obs == 3, f"ablation observe() calls {n_obs} (290, 300, 305)")
+        want = {"eam_rho": steps_run, "eam_force": steps_run,
+                "eam_rho_e": n_obs, "eam_force_s": n_obs}
+        for k, v in want.items():
+            check(launches[k] == v, f"ablation: {k} launched {launches[k]} "
+                  f"times (expected {v})")
+        others = {k: v for k, v in launches.items()
+                  if v and k not in want and k != "compact"}
+        check(not others, f"ablation: other kernels launched {others}")
+        check(launches["compact"] == 3 * c.rebins,
+              f"ablation: K3 {launches['compact']} launches in {c.rebins} "
+              f"rebins")
+        # the implicit solver: n_sub substeps a step and no CFL read; the
+        # one host read a step is the skin check
+        check(c.cfl_substeps == ABL_N_SUB * steps_run,
+              f"ablation: {c.cfl_substeps} TTM substeps in {steps_run} steps")
+        check(c.host_syncs == steps_run,
+              f"ablation: {c.host_syncs} host reads in {steps_run} steps")
+        # the files
+        eng = np.loadtxt(tmp / "ablation1m.eng", ndmin=2)
+        laser = np.loadtxt(tmp / "ablation1m.laser", ndmin=2)
+        check(eng.shape == (2, 6) and bool(np.isfinite(eng).all()),
+              f"ablation .eng {eng.shape} finite")
+        check(laser.shape == (2, 6) and bool(np.isfinite(laser).all()),
+              f"ablation .laser {laser.shape} finite")
+        check(laser[1, 3] > laser[0, 3] > 0.0,
+              "ablation: the absorbed fluence rises over the run")
+        for base in ("ablation1m.00015", "ablation1m-final"):
+            for ext in (".chkpt", ".itr", ".nrb", ".ttm"):
+                check((tmp / (base + ext)).stat().st_size > 0,
+                      f"{base}{ext} written")
+        with open(tmp / "ablation1m.laser") as f:
+            laser_lines = f.read().splitlines()
+        # FILTER: exactly the 16 vapour atoms are gone (at step 290)
+        live = state.scene.mask
+        ids = torch.sort(state.scene.id[live]).values.cpu().numpy()
+        check(sim.n_filter == 2 and len(ids) == n_film
+              and np.array_equal(ids, film_ids),
+              f"FILTER: {n_film + nv - len(ids)} atoms deleted in "
+              f"{sim.n_filter} applications; every film atom kept")
+        # NRB: the boundary layer and its neighbours
+        st = sim.nrb_state
+        n_bnd = int(st.bnd_id.numel())
+        n_nb = (st.neigh_id >= 0).sum(1)
+        check(n_bnd == n_bnd_want and bool((n_nb == 4).all())
+              and bool((st.bnd_type == 1).all()),
+              f"NRB: {n_bnd} boundary atoms (the start file has "
+              f"{n_bnd_want} within alat/4 of x-max), each with 4 inward "
+              f"neighbours")
+        tmm_out = tmm_checks(sim, state)
+        ttm_parts = calc_ttm_parts(sim, state)
+
+        # the same file without nrb_*, 2 steps: its host reads a step
+        (tmp / "plain.imd").write_text(ablation_text(drop_nrb=True,
+                                                     steps=2))
+        plain = []
+        check(cli.main(["-p", str(tmp / "plain.imd")],
+                       on_phase=lambda s_, st_: plain.append(s_)) == 0,
+              "ablation without nrb_*")
+        pc = plain[0].counters
+        check(plain[0].nrb_state is None
+              and pc.host_syncs * steps_run == c.host_syncs * pc.steps,
+              f"NRB adds no host read: {c.host_syncs}/{steps_run} against "
+              f"{pc.host_syncs}/{pc.steps} without nrb_*")
+        del plain
+
+    main_s = sim.timers.get("main")
+    report = {
+        "config": "examples/ablation/run1m/ablation_1m.imd as written (fcc "
+                  "Al film, 1,024,000 atoms + 16 vapour atoms, pbc 0 1 1, "
+                  "TTM 256 cells FEG EOS, TMM 800 nm I0 2e17 W/m^2, NRB, "
+                  "FILTER, ttm_solver implicit 10 substeps, cell_capacity "
+                  "24) for 20 steps from step 285, .eng every 10, FILTER "
+                  "every 10, float32",
+        "atoms": n_film + nv, "atoms_end": len(ids),
+        "grid": list(sim.grid.dims), "capacity": sim.grid.capacity,
+        "steps": ABL_STEPS, "steps_run": steps_run,
+        "setup_s": sim.setup_seconds, "setup_parts_s": sim.setup_parts,
+        "main_loop_s": main_s, "wall_s": wall,
+        "atom_steps_per_s": n_film * ABL_STEPS / main_s,
+        "ms_per_step": 1e3 * main_s / ABL_STEPS,
+        "phase_ms_per_step": {k: v / steps_run for k, v in phases.items()},
+        "phase_calls": timer.counts(),
+        "filter_applications": sim.n_filter,
+        "ms_per_filter": 1e3 * sim.timers.get("filter") / sim.n_filter,
+        "observe_calls": n_obs,
+        "ms_per_observe": 1e3 * sim.timers.get("observe") / n_obs,
+        "io_s": sim.timers.get("io"),
+        "step_counts": dataclasses.asdict(c),
+        "nrb_boundary_atoms": n_bnd,
+        "host_syncs_per_step": c.host_syncs / steps_run,
+        "host_syncs_per_step_without_nrb": pc.host_syncs / pc.steps,
+        "tmm": tmm_out, "calc_ttm_parts": ttm_parts,
+        "eng": eng.tolist(), "laser": laser_lines,
+        "launches": launches, "max_memory_allocated_bytes": peak,
+        "device": dev_name, "nvidia_smi": smi}
+    print(json.dumps({"ablation": report}))
     return report, sim, state
 
 
@@ -1821,6 +2173,16 @@ def main() -> int:
     launches["pair_half"] = lj_report["launches"]["pair_half"]
     errs["pair_half"] = max(errs["pair_half"],
                             lj_report["k12_vs_plain_last_state"]["max_abs"])
+    torch.cuda.empty_cache()
+
+    # ---- 8. the ablation example as written (TMM, NRB, FILTER, implicit)
+    abl, asim, astate = run_ablation(dev_name, smi)
+    acl = scene_to_cl(astate.scene)
+    check_all(acl.xi, acl.alive, asim.eam_run, asim.grid,
+              f"ablation end, dims {asim.grid.dims} cap "
+              f"{asim.grid.capacity}, after FILTER")
+    del acl, asim, astate
+    torch.cuda.empty_cache()
 
     rows = [("eam_rho", "eam_win.cu", "imd_tpu/ops/forces_win.py:306"),
             ("eam_force", "eam_win.cu", "imd_tpu/ops/forces_win.py:411"),
@@ -1872,9 +2234,11 @@ def main() -> int:
     for n, src, rep in rows:
         kern = n.removesuffix("_b8")
         b = roofline(*work[kern])
+        extra = ({"launches_ablation": abl["launches"][n]}
+                 if abl["launches"].get(n) and n == kern else {})
         out.append({
             "name": n, "route": "cuda", "source": f"imd_tpu_torch/csrc/{src}",
-            "replaces": rep, "launches": launches[n],
+            "replaces": rep, "launches": launches[n], **extra,
             "max_abs_err": errs[n], "ms": ms[kern],
             "plain_ms": plain_ms[kern], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,

@@ -2,7 +2,8 @@
 
 The ``from_*`` functions take imd_tpu objects (Box, CellGrid, PotTable,
 PolyPotential, a pair potential or an EAMPotential with any number of type
-columns, Scene with its types, CLState, TTMParams, TTMGrid) and read
+columns, Scene with its types, CLState, TTMParams, TTMGrid, NRBState,
+TMMParams) and read
 every field through ``np.asarray``, so this module never imports jax: it
 works on anything with those attributes.  ``to_numpy`` turns a port
 dataclass back into a dict of NumPy arrays.  The parity tests use both so
@@ -18,6 +19,8 @@ import torch
 
 from imd_tpu_torch.models.potential import (EAMPotential, PolyPotential,
                                             PotTable)
+from imd_tpu_torch.models import nrb as nrb_mod
+from imd_tpu_torch.models.tmm import TMMParams
 from imd_tpu_torch.models.ttm import TTMGrid, TTMParams
 from imd_tpu_torch.ops.fused_step import CLState
 from imd_tpu_torch.ops.geometry import Box, CellGrid
@@ -94,6 +97,28 @@ def from_ttm_grid(tg, device="cuda") -> TTMGrid:
         kw[f.name] = (bool(np.asarray(v)) if f.type == "bool"
                       else _t(v, device))
     return TTMGrid(**kw)
+
+
+def nrb_state_from_jax(st, device="cuda") -> nrb_mod.NRBState:
+    """imd_tpu's NRBState (its leaves read as NumPy arrays) as the port's,
+    in the dtype of its reference positions."""
+    ref = np.asarray(st.bnd_ref)
+    return nrb_mod.make_state(
+        np.asarray(st.bnd_id), np.asarray(st.bnd_type), ref,
+        np.asarray(st.neigh_id), np.asarray(st.neigh_ref),
+        float(np.asarray(st.nrbk)), float(np.asarray(st.mass)),
+        int(st.n_ids), dtype=(torch.float64 if ref.dtype == np.float64
+                               else torch.float32), device=device)
+
+
+def tmm_params_from_jax(tp, device="cuda") -> TMMParams:
+    """imd_tpu's TMMParams: its static fields and its tables (in their
+    dtype) as the port's."""
+    tables = ("k1_tab", "k2_tab", "bb_lam_um", "bb_re", "bb_im")
+    kw = {f.name: getattr(tp, f.name) for f in dataclasses.fields(TMMParams)
+          if f.init and f.name not in tables}
+    return TMMParams(**kw, **{n: _t(getattr(tp, n), device)
+                              for n in tables})
 
 
 def to_numpy(obj) -> dict:

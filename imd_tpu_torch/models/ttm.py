@@ -10,15 +10,18 @@ imd_tpu/models/ttm.py; the reference's calc_ttm, imd_ttm.c:75-156).
 
 Torch re-design: the atom<->column sums are ``index_add_`` and the per-atom
 gathers are indexing (the JAX package uses one-hot matmuls, a TPU
-workaround).  The CFL substep count is read to the host once per step (one
-sync) and drives a Python loop, where the JAX package runs a traced
-fori_loop.  Flags that are host-known (``first_step``, ``init_done``,
-``cfl_overflow``) are Python bools.  TTM parameters stay Python floats so
-the state keeps its dtype.
+workaround).  The explicit solver's CFL substep count is read to the host
+once per step (one sync) and drives a Python loop, where the JAX package
+runs a traced fori_loop; the implicit solver runs ``n_sub`` substeps with
+no host read, each a tridiagonal solve by cyclic reduction (log depth, where
+imd_tpu's Thomas recurrence is a sequential scan).  Flags that are
+host-known (``first_step``, ``init_done``, ``cfl_overflow``) are Python
+bools.  TTM parameters stay Python floats so the state keeps its dtype.
 
-Only the explicit solver with a Lambert-Beer laser (``laser_cfg``) is
-ported; TMM, COLRAD, VLAT, FDTD and the implicit solver raise
-NotImplementedError.
+The laser is the Lambert-Beer source (``laser_cfg``) or the TMM solver
+(``tmm_params``, models/tmm.py), which recomputes the source every
+substep.  COLRAD and VLAT raise NotImplementedError (FDTD has its own
+calc_ttm_fdtd in imd_tpu, not ported).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import math
 import numpy as np
 import torch
 
+from imd_tpu_torch import units
+from imd_tpu_torch.models import tmm as tmm_mod
 from imd_tpu_torch.models import widerange as wr
 from imd_tpu_torch.models.eos import FEGEos
 from imd_tpu_torch.ops.geometry import np_dtype
@@ -308,6 +313,19 @@ def cfl_substeps(grid: TTMGrid, params: TTMParams, dt: float):
         sub > params.max_substeps
 
 
+def _absorb(grid: TTMGrid, params: TTMParams, act, tau: float,
+            laser_active):
+    """eabs plus the laser energy the active cells took this substep while
+    the laser is on (a Python flag or a device bool; a flag is decided on
+    the host, where a tensor made of it would wait for the stream)."""
+    if isinstance(laser_active, bool) and not laser_active:
+        return grid.eabs
+    absorbed = torch.where(act, grid.source, 0.0).sum() * params.fd_vol * tau
+    if isinstance(laser_active, bool):
+        return grid.eabs + absorbed
+    return grid.eabs + torch.where(laser_active, absorbed, 0.0)
+
+
 def diff_step(grid: TTMGrid, params: TTMParams, tau: float, substeps: int,
               laser_active) -> TTMGrid:
     """One explicit conservative variable-kappa diffusion substep
@@ -335,9 +353,97 @@ def diff_step(grid: TTMGrid, params: TTMParams, tau: float, substeps: int,
                       (T2 - grid.md_temp) * xi_fac * grid.fd_g
                       / torch.clamp(grid.md_temp, min=1e-12)
                       / torch.clamp(grid.dens, min=1e-12), 0.0)
-    absorbed = torch.where(act, grid.source, 0.0).sum() * params.fd_vol * tau
-    eabs = grid.eabs + torch.where(
-        torch.as_tensor(laser_active, device=T.device), absorbed, 0.0)
+    eabs = _absorb(grid, params, act, tau, laser_active)
+    return grid.replace(temp=T2, U=U2, xi=grid.xi + dxi, eabs=eabs)
+
+
+def tridiag_solve(a, b, c, d):
+    """Solve the tridiagonal system a_i x_{i-1} + b_i x_i + c_i x_{i+1} =
+    d_i ([n] tensors; a[0] and c[-1] are ignored) by cyclic reduction:
+    each level folds the even rows into the odd ones, log2(n) levels down
+    and back, no per-row loop.  Stable for diagonally dominant systems
+    (|b| >= |a| + |c|: backward-Euler diffusion), like imd_tpu's Thomas
+    recurrence (_thomas), whose result it equals up to rounding."""
+    n = b.shape[0]
+    a = torch.cat([a.new_zeros(1), a[1:]])
+    c = torch.cat([c[:-1], c.new_zeros(1)])
+    # pad to 2^k - 1 rows with decoupled identity rows (b 1, a = c = d 0)
+    size = 1
+    while size < n:
+        size = 2 * size + 1
+    pad = size - n
+    if pad:
+        zero = b.new_zeros(pad)
+        a, c, d = (torch.cat([v, zero]) for v in (a, c, d))
+        b = torch.cat([b, zero + 1.0])
+    return _cr(a, b, c, d)[:n]
+
+
+def _cr(a, b, c, d):
+    """Cyclic reduction on 2^k - 1 rows (a[0] = c[-1] = 0)."""
+    if b.shape[0] == 1:
+        return d / b
+    # the odd rows 1, 3, 5, ... take in their even neighbours i-1 and i+1
+    # and form the next level
+    ae, be, ce, de = a[1::2], b[1::2], c[1::2], d[1::2]
+    al = -ae / b[0:-1:2]
+    ga = -ce / b[2::2]
+    a2 = al * a[0:-1:2]
+    c2 = ga * c[2::2]
+    b2 = be + al * c[0:-1:2] + ga * a[2::2]
+    d2 = de + al * d[0:-1:2] + ga * d[2::2]
+    x_odd = _cr(a2, b2, c2, d2)
+    # the eliminated rows from their two solved neighbours
+    zero = x_odd.new_zeros(1)
+    x_l = torch.cat([zero, x_odd])
+    x_r = torch.cat([x_odd, zero])
+    x_even = (d[0::2] - a[0::2] * x_l - c[0::2] * x_r) / b[0::2]
+    x = torch.stack([x_even[:-1], x_odd], 1).reshape(-1)
+    return torch.cat([x, x_even[-1:]])
+
+
+def diff_step_implicit(grid: TTMGrid, params: TTMParams, tau: float,
+                       substeps: int, laser_active) -> TTMGrid:
+    """One backward-Euler diffusion substep (imd_tpu
+    diff_step_implicit, models/ttm.py:442): one tridiagonal solve of
+
+        (Ce/tau + cm + cp + g) T' - cm T'_m - cp T'_p
+            = Ce/tau T + g T_i + S
+
+    with the face conductivities cm/cp = (k + k_nbr)/2 dx^-2 zeroed at
+    inactive neighbours and at the ends of the (non-periodic) grid.  The
+    coefficients lag at the substep start; the energy, xi and eabs
+    bookkeeping is diff_step's."""
+    act = active_mask(grid, params)
+    T = grid.temp
+    k = grid.fd_k
+    act_p = torch.roll(act, -1)
+    act_m = torch.roll(act, 1)
+    k_p = torch.roll(k, -1)
+    k_m = torch.roll(k, 1)
+    inv_dx2 = 1.0 / params.fd_h_x ** 2
+    nx = T.shape[0]
+    idx = torch.arange(nx, device=T.device)
+    cp = torch.where(act & act_p & (idx < nx - 1),
+                     (k + k_p) * 0.5 * inv_dx2, 0.0)
+    cm = torch.where(act & act_m & (idx > 0), (k + k_m) * 0.5 * inv_dx2, 0.0)
+    Ce = torch.clamp(grid.Ce, min=1e-30)
+    g = grid.fd_g
+    a = torch.where(act, -cm, 0.0)
+    c = torch.where(act, -cp, 0.0)
+    b = torch.where(act, Ce / tau + cm + cp + g, 1.0)
+    rhs = torch.where(act, Ce / tau * T + g * grid.md_temp + grid.source, T)
+    T2 = T if params.fix_t_el else tridiag_solve(a, b, c, rhs)
+    T2 = torch.where(act, T2, T)
+    U2 = grid.U + torch.where(
+        act, (T2 - T) * Ce * params.fd_vol
+        / torch.clamp(grid.natoms, min=1), 0.0)
+    xi_fac = params.atomic_mass * wr.AMU / 3.0 * 1e30 / max(substeps, 1)
+    dxi = torch.where(act & (grid.md_temp > 1e-12) & (grid.dens > 0),
+                      (T2 - grid.md_temp) * xi_fac * grid.fd_g
+                      / torch.clamp(grid.md_temp, min=1e-12)
+                      / torch.clamp(grid.dens, min=1e-12), 0.0)
+    eabs = _absorb(grid, params, act, tau, laser_active)
     return grid.replace(temp=T2, U=U2, xi=grid.xi + dxi, eabs=eabs)
 
 
@@ -372,19 +478,21 @@ def calc_ttm(grid: TTMGrid, atoms, params: TTMParams, eos: FEGEos,
              first_step: bool = False, tmm_params=None, colrad=None,
              vlat=None, counters=None):
     """One MD step of TTM (calc_ttm, imd_ttm.c:75): reductions,
-    advection, activation, CFL-substepped diffusion.
+    advection, activation, substepped diffusion.
 
     ``atoms`` = (x, (px, py, pz), mass, mask) flat component tensors;
-    ``t`` the step time as a 0-d tensor.  Returns (grid, fdi_new).  Reads
-    the substep count to the host once (counted in ``counters``)."""
-    for name, arg in (("tmm_params", tmm_params), ("colrad", colrad),
-                      ("vlat", vlat)):
+    ``t`` the step time as a 0-d tensor.  The explicit solver takes the CFL
+    substep count (one host read, counted in ``counters``); the implicit
+    solver ``n_sub`` substeps.  With ``tmm_params`` (models/tmm.py) the TMM
+    solver recomputes the source at every substep, at t + i tau in SI
+    seconds (tmm_time, imd_ttm.c:117), and its own pulse gate switches the
+    absorbed-energy count and the laser's Coulomb-log branch.  Returns
+    (grid, fdi_new)."""
+    for name, arg in (("colrad", colrad), ("vlat", vlat)):
         if arg is not None:
             raise NotImplementedError(f"calc_ttm {name} is not ported")
-    if params.solver != "explicit":
-        raise NotImplementedError(
-            f"TTM solver {params.solver!r}: only the explicit solver is "
-            "ported")
+    if params.solver not in ("explicit", "implicit"):
+        raise ValueError(f"unknown TTM solver {params.solver!r}")
     x, mom3, mass, mask = atoms
     grid, fdi = update_fd_flat(grid, params, x, mom3, mass, mask,
                                num_neighs, fdi_prev, first_step)
@@ -394,19 +502,30 @@ def calc_ttm(grid: TTMGrid, atoms, params: TTMParams, eos: FEGEos,
     if laser_cfg is not None and laser_cfg.sigma_e > 0:
         grid, laser_active = lambert_beer_source(grid, params, laser_cfg, t)
     grid = fill_mesh(grid, params, eos, laser_active)
-    sub_t, clamped_t = cfl_substeps(grid, params, dt)
-    substeps, clamped = (int(v) for v in
-                         torch.stack([sub_t, clamped_t.to(torch.int32)])
-                         .tolist())
+    if params.solver == "implicit":
+        substeps = max(params.n_sub, 1)
+        step_fn = diff_step_implicit
+    else:
+        sub_t, clamped_t = cfl_substeps(grid, params, dt)
+        substeps, clamped = (int(v) for v in
+                             torch.stack([sub_t, clamped_t.to(torch.int32)])
+                             .tolist())
+        if counters is not None:
+            counters.host_syncs += 1
+        grid = grid.replace(cfl_overflow=grid.cfl_overflow or bool(clamped))
+        step_fn = diff_step
     if counters is not None:
-        counters.host_syncs += 1
         counters.cfl_substeps += substeps
-    grid = grid.replace(cfl_overflow=grid.cfl_overflow or bool(clamped))
     dt_np = np_dtype(grid.temp.dtype).type
     tau = float(dt_np(dt) / dt_np(substeps))
-    for _ in range(substeps):
-        grid = diff_step(grid, params, tau, substeps, laser_active)
-        grid = fill_mesh(grid, params, eos, laser_active)
+    on = laser_active
+    for i in range(substeps):
+        if tmm_params is not None:
+            t_si = (t + i * tau) * units.IMD_TIME_S
+            grid, diag = tmm_mod.do_tmm(grid, params, tmm_params, t_si)
+            on = diag["laser_active"]
+        grid = step_fn(grid, params, tau, substeps, on)
+        grid = fill_mesh(grid, params, eos, on)
     # final U consistent with T via the EOS (imd_ttm.c:131-145)
     act = active_mask(grid, params)
     U = torch.where(act, eos.u_from_te(grid.dens, _ne(grid, params),

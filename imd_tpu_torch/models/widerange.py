@@ -1,6 +1,10 @@
 """Wide-range electron transport models (port of
 imd_tpu/models/widerange.py:85-240; imd_ttm.c:2191-2420).
 
+``fermi_E``, ``numet``, ``numax`` and ``nupl`` keep the reference's SI
+signatures (Te in K, nu in 1/s) for the TMM permittivity (models/tmm.py);
+they wrap the scaled-unit forms below.
+
 Inputs Te, Ti in eV, ne in 1/m^3, dens in kg/m^3; kappa and g come out in
 IMD-internal units.  float32 safety is the JAX package's: all runtime
 arithmetic runs in scaled units (eV, 1e28/m^3, 1e15/s, Angstrom) with every
@@ -59,6 +63,11 @@ def fermi_E_eV(ne):
     return _EF0_EV * (ne * (1.0 / N28)) ** (2.0 / 3.0)
 
 
+def fermi_E(ne):
+    """Fermi energy [J] (imd_ttm.c:2191); f32-safe (result ~1e-18)."""
+    return fermi_E_eV(ne) * EV
+
+
 def _b_min_a(Z, Te_eV):
     """min impact parameter [Angstrom]."""
     return torch.maximum(Z * (_BMIN1_A / _max(Te_eV, 1e-10)),
@@ -69,8 +78,12 @@ def _b_max_a(omega_las15, Z, ni28, Te_eV, laser_active):
     tf = (2.0 / 3.0) * _EF0_EV * (ni28 * Z) ** (2.0 / 3.0)
     teff = torch.sqrt(Te_eV ** 2 + tf ** 2)
     wpl15 = _WPL28_15 * torch.sqrt(ni28 * Z)
-    om15 = torch.where(torch.as_tensor(laser_active, device=wpl15.device),
-                       _max(wpl15, omega_las15), wpl15)
+    # a Python flag decides on the host: a tensor made of it on the card
+    # would be a copy that waits for the stream
+    if isinstance(laser_active, bool):
+        om15 = _max(wpl15, omega_las15) if laser_active else wpl15
+    else:
+        om15 = torch.where(laser_active, _max(wpl15, omega_las15), wpl15)
     v_over_w = (_VUNIT / NU15 * 1e10) * torch.sqrt(teff) / _max(om15, 1e-10)
     return torch.maximum(_R0_28_A * ni28 ** (-1.0 / 3.0), v_over_w)
 
@@ -96,6 +109,23 @@ def _nupl15(omega_las15, Z, ni28, ne28, Te_eV, laser_active):
     """Plasma (Spitzer) collision frequency [1e15/s] (imd_ttm.c:2297)."""
     cl = _coulomb_log(omega_las15, Z, ni28, Te_eV, laser_active)
     return _NUPL15 * Z * ne28 * cl / _max(Te_eV, 1e-10) ** 1.5
+
+
+# reference-signature wrappers (Te in K, nu in 1/s)
+def numet(A1, A2, Te_K, Ti_K, TF_K):
+    return _numet15(A1, A2, Te_K / EV_TO_K, Ti_K / EV_TO_K,
+                    TF_K / EV_TO_K) * NU15
+
+
+def numax(A3, vf, Te_K, ni):
+    # vf = sqrt(2 EF / m)  ->  EF_eV = (vf/vunit)^2 / 2
+    ef = (vf / _VUNIT) ** 2 * 0.5
+    return _numax15(A3, ef, Te_K / EV_TO_K, ni * (1.0 / N28)) * NU15
+
+
+def nupl(omega_las, Z, ni, ne, Te_K, laser_active):
+    return _nupl15(omega_las / NU15, Z, ni * (1.0 / N28), ne * (1.0 / N28),
+                   Te_K / EV_TO_K, laser_active) * NU15
 
 
 def mean_charge(Te_eV, dens, z0, am):

@@ -1,5 +1,5 @@
-"""Stencil offsets and the all-pairs EAM oracle (port of
-imd_tpu/ops/forces.py:34-39, 615).
+"""Stencil offsets, the Scene-layout neighbour views and the all-pairs EAM
+oracle (port of imd_tpu/ops/forces.py:34-84, 615).
 
 ``eam_forces_n2`` is the port's own reference for the force kernels: plain
 torch over all N^2 minimum-image pairs, no cells, no kernels.
@@ -7,6 +7,7 @@ torch over all N^2 minimum-image pairs, no cells, no kernels.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from imd_tpu_torch.ops.geometry import Box
@@ -15,6 +16,38 @@ from imd_tpu_torch.ops.geometry import Box
 ALL_OFFSETS = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
                for k in (-1, 0, 1)]
 HALF_OFFSETS = [o for o in ALL_OFFSETS if o > (0, 0, 0)]
+
+
+def _neighbor_view(grid, arr: torch.Tensor, off) -> torch.Tensor:
+    """Roll a Scene-layout [gx, gy, gz, ...] array so that cell c sees cell
+    c+off's data at its own index (an axis of one cell is not rolled)."""
+    shifts, axes = [], []
+    for ax, o in enumerate(off):
+        if o and arr.shape[ax] > 1:
+            shifts.append(-o)
+            axes.append(ax)
+    return torch.roll(arr, shifts, axes) if axes else arr
+
+
+def _wrap_shift_and_mask(grid, off, dtype, device):
+    """For the +off neighbour of every cell: the Cartesian shift
+    [gx, gy, gz, 1, 3] of a neighbour reached across a periodic face (its
+    positions seen from the cell) and the validity [gx, gy, gz, 1] (False
+    across an open face)."""
+    valid = torch.ones(tuple(grid.dims), dtype=torch.bool, device=device)
+    h = torch.as_tensor(np.asarray(grid.box.h), device=device).to(dtype)
+    terms = []
+    for ax, (g, o) in enumerate(zip(grid.dims, off)):
+        wrap = torch.div(torch.arange(g, device=device) + o, g,
+                         rounding_mode="floor")         # -1, 0 or +1
+        shape = [1, 1, 1]
+        shape[ax] = g
+        wrap = wrap.reshape(shape)
+        terms.append(wrap.to(dtype)[..., None] * h[ax])
+        if not grid.box.pbc[ax]:
+            valid = valid & (wrap == 0)
+    shift = terms[0] + terms[1] + terms[2]              # [gx, gy, gz, 3]
+    return shift[..., None, :], valid[..., None]
 
 
 def min_image(box: Box, dr: torch.Tensor) -> torch.Tensor:

@@ -25,8 +25,15 @@ count; both are counted in ``StepCounters``.
   energies and stress the step does not read.
 
 With ``ntypes`` 2 to 4 every engine runs the alloy pair K6, K7, which
-reads ``typ`` (imd_tpu does the same).  One device only: ``mesh``,
-``nrb_state``, TMM, VLAT, ELECPRESS, COLRAD and FDTD raise
+reads ``typ`` (imd_tpu does the same).
+
+``nrb_state`` (models/nrb.py) sets the rear-boundary momenta after the
+forces, before the TTM reductions read them, and the boundary atoms keep
+them through the leapfrog; ``tmm_params`` (models/tmm.py) makes calc_ttm
+solve the TMM laser at every diffusion substep.  FILTER runs between
+blocks, not in the step: ``make_filter_apply``.  Together these are the
+reference's flagship build (eam_nve_nbl_nrb_stress_ttm_tmm_filter).  One
+device only: ``mesh``, VLAT, ELECPRESS, COLRAD and FDTD raise
 NotImplementedError unless left at their defaults, and so does ``ntypes``
 > 4 (not fused in imd_tpu either).
 """
@@ -38,6 +45,8 @@ import dataclasses
 import torch
 
 from imd_tpu_torch.models import ttm as ttm_mod
+from imd_tpu_torch.models.filter import filter_atoms
+from imd_tpu_torch.models.nrb import nrb_forces_cl
 from imd_tpu_torch.ops.forces_fast import _from_cl, _to_cl
 from imd_tpu_torch.kernels import MAX_NT
 from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, check_mt_tables,
@@ -45,7 +54,7 @@ from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, check_mt_tables,
                                           eam_kernels_win_split_mt)
 from imd_tpu_torch.ops.rebin_cl import make_rebin_cl
 from imd_tpu_torch.phases import StepCounters, no_timer
-from imd_tpu_torch.scene import Scene
+from imd_tpu_torch.scene import Scene, rebin_with
 
 
 @dataclasses.dataclass(eq=False)
@@ -170,6 +179,15 @@ def _leapfrog_skin(cl: CLState, mom2, skin2: float, dt: float,
     return cl.replace(xi=xi2, mom=mom2), need
 
 
+def _nrb(cl: CLState, box, nrb_state, timer):
+    """(mom_set, bnd): the boundary atoms' momenta set by the NRB rule, or
+    the momenta as they are and None without ``nrb_state``."""
+    if nrb_state is None:
+        return cl.mom, None
+    with timer("nrb"):
+        return nrb_forces_cl(cl.xi, cl.mom, cl.alive, cl.ids, box, nrb_state)
+
+
 def make_fused_step(template: Scene, eam_run, timestep: float,
                     engine: str = "win", mesh=None, nrb_state=None,
                     ntypes: int = 1, timer=no_timer,
@@ -177,10 +195,10 @@ def make_fused_step(template: Scene, eam_run, timestep: float,
     """Returns (step, cl0): step(cl) -> (cl', nneigh [cap, NC], zero: the
     pure-MD step counts no neighbours).
 
-    EAM forces (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4)
-    + leapfrog + skin check with a migration rebin on trigger.
-    ``eam_run`` must be fastpoly."""
-    _only_ported(mesh=mesh is not None, nrb_state=nrb_state is not None)
+    EAM forces (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4),
+    the NRB momenta with ``nrb_state``, leapfrog, skin check with a
+    migration rebin on trigger.  ``eam_run`` must be fastpoly."""
+    _only_ported(mesh=mesh is not None)
     grid = template.grid
     forces = _make_forces(eam_run, template, ntypes, timer, engine)
     dt = float(timestep)
@@ -190,10 +208,16 @@ def make_fused_step(template: Scene, eam_run, timestep: float,
 
     def step(cl: CLState):
         F, nn = forces(cl, False)
+        mom_set, bnd = _nrb(cl, grid.box, nrb_state, timer)
         with timer("leapfrog"):
             af = cl.alive.to(cl.xi.dtype)
-            mom2 = (cl.mom + dt * F) * af[:, None, :]
-            cl, need = _leapfrog_skin(cl, mom2, skin2, dt, counters)
+            mom2 = mom_set + dt * F
+            if bnd is not None:
+                # boundary atoms keep their set momenta
+                # (imd_integrate.c:254-259)
+                mom2 = torch.where(bnd[:, None, :], mom_set, mom2)
+            cl, need = _leapfrog_skin(cl, mom2 * af[:, None, :], skin2, dt,
+                                      counters)
         if need:
             with timer("rebin"):
                 cl = rebin(cl)
@@ -216,12 +240,13 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
     Returns (step, cl0): step(cl, tgrid, fdi, k) -> (cl', tgrid', fdi',
     k+1) with ``fdi`` the flat [cap*NC] int32 stored FD index (-1 = no
     history) and ``k`` the host step number.  EAM forces with neighbour
-    counts (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4),
-    calc_ttm on flat component views of the cells-last state, xi-coupled
-    leapfrog p += dt (F + xi m (v - vcom)), skin check, and on trigger the
-    migration rebin carrying fdi with its atom."""
-    _only_ported(mesh=mesh is not None, nrb_state=nrb_state is not None,
-                 tmm_params=tmm_params is not None, vlat=vlat is not None,
+    counts (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4), the
+    NRB momenta with ``nrb_state``, calc_ttm on flat component views of
+    the cells-last state (the TMM laser with ``tmm_params``), xi-coupled
+    leapfrog p += dt (F + xi m (v - vcom)) where boundary atoms keep their
+    set momenta, skin check, and on trigger the migration rebin carrying
+    fdi with its atom."""
+    _only_ported(mesh=mesh is not None, vlat=vlat is not None,
                  elecpress=bool(elecpress), colrad=colrad is not None,
                  fdtd_params=fdtd_params is not None)
     grid = template.grid
@@ -234,15 +259,19 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
 
     def step(cl: CLState, tgrid, fdi, k: int):
         F, nn = forces(cl, True)
+        # the NRB momenta are set before the TTM reductions read them
+        # (nrb_forces ends calc_forces, imd_forces_nbl.c:1019-1048)
+        mom_set, bnd = _nrb(cl, grid.box, nrb_state, timer)
         x = cl.xi[:, 0, :].reshape(-1)
-        mom3 = tuple(cl.mom[:, c, :].reshape(-1) for c in range(3))
+        mom3 = tuple(mom_set[:, c, :].reshape(-1) for c in range(3))
         massf = cl.mass.reshape(-1)
         with timer("calc_ttm"):
-            t = torch.tensor(float(k), dtype=dtype, device=x.device) * dt
+            t = torch.full((), float(k), dtype=dtype, device=x.device) * dt
             tgrid, fdi = ttm_mod.calc_ttm(
                 tgrid, (x, mom3, massf, cl.alive.reshape(-1)), tp, eos,
                 nn.reshape(-1), fdi, dt, t, laser_cfg=laser_cfg,
-                first_step=(k == 0), counters=counters)
+                first_step=(k == 0), tmm_params=tmm_params,
+                counters=counters)
         with timer("leapfrog"):
             fdidx = ttm_mod.fd_index_from_x(x, tp)
             xi_a, vcom_a = ttm_mod.gather_atom_coupling_flat(tgrid, fdidx)
@@ -250,9 +279,12 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
             shape2 = cl.mass.shape
             mom_new = []
             for c in range(3):
+                momc = mom_set[:, c, :]
                 extra = (xi_a * (mom3[c] - massf * vcom_a[:, c])
                          ).reshape(shape2)
-                upd = cl.mom[:, c, :] + dt * (F[:, c, :] + extra)
+                upd = momc + dt * (F[:, c, :] + extra)
+                if bnd is not None:
+                    upd = torch.where(bnd, momc, upd)
                 mom_new.append(upd * af)
             cl, need = _leapfrog_skin(cl, torch.stack(mom_new, 1), skin2,
                                       dt, counters)
@@ -267,3 +299,24 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
         return cl, tgrid, fdi, k + 1
 
     return step, scene_to_cl(template)
+
+
+def make_filter_apply(template: Scene, filter_cfg, cutoff: float):
+    """apply(cl[, fdi]) -> cl' [, fdi']: FILTER on the cells-last state
+    (imd_tpu make_filter_apply, ops/fused_step.py:418).  The driver runs it
+    at block boundaries every filter_int steps (imd_filter.c:151): to the
+    Scene, ``filter_atoms`` with the bond cutoff ``cutoff``, a rebin that
+    drops the deleted atoms (carrying the stored FD index ``fdi`` with its
+    atom; a deleted atom's slot comes back -1), back to cells-last."""
+    dims = template.grid.dims
+
+    def apply(cl: CLState, fdi=None):
+        sc, _ = filter_atoms(cl_to_scene(cl, template), filter_cfg, cutoff)
+        if fdi is None:
+            return scene_to_cl(rebin_with(sc, None)[0])
+        cap = cl.mass.shape[0]
+        sc2, ex = rebin_with(sc, {"fdi": _from_cl(fdi.reshape(cap, -1),
+                                                  dims)})
+        return scene_to_cl(sc2), _to_cl(ex["fdi"], dims).reshape(-1)
+
+    return apply

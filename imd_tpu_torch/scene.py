@@ -204,16 +204,28 @@ def rebin(scene: Scene, grid: CellGrid | None = None) -> Scene:
     (fix_cells; imd_tpu/scene.py:225).  Epot travels with its atom,
     forces are zeroed; atoms past a cell's capacity are dropped and
     counted in ``overflow``."""
+    return rebin_with(scene, None, grid)[0]
+
+
+def rebin_with(scene: Scene, extra, grid: CellGrid | None = None):
+    """``rebin`` that also carries the cell-shaped [gx, gy, gz, cap, ...]
+    arrays of the dict ``extra`` with their atoms (dead and dropped
+    slots: -1 for integer fields, 0 for floats), as the reference moves
+    the TTM's stored FD index with its atom (imd_tpu/scene.py:237).
+    Returns (scene', extra' or None)."""
     grid = scene.grid if grid is None else grid
     flat = flatten_atoms(scene)
     arrays = {k: flat[k] for k in ("mask", "mom", "mass", "type", "vtype",
                                    "id", "epot")}
+    for name, a in (extra or {}).items():
+        arrays[name] = a.reshape((-1,) + tuple(a.shape[4:]))
     out, overflow = _bin_flat(grid, flat["pos"], arrays, grid.capacity)
-    return scene.replace(
+    scene = scene.replace(
         pos=out["pos"], mom=out["mom"], force=torch.zeros_like(out["pos"]),
         epot=out["epot"], mass=out["mass"], type=out["type"],
         vtype=out["vtype"], id=out["id"], nbl_ref_pos=out["pos"],
         overflow=scene.overflow + overflow, grid=grid)
+    return scene, ({name: out[name] for name in extra} if extra else None)
 
 
 def max_displacement2(scene: Scene) -> torch.Tensor:

@@ -12,11 +12,15 @@ in blocks that end on the next I/O step.  At every block end where some
 output is due, ``observe`` evaluates the observables with the B4 kernels
 (ops/forces_pallas.py: K4 ``eam_rho_e``, K5 ``eam_force_s``; with
 ``ntypes`` > 1 the alloy pair K8, K9) and the
-driver writes ``.eng``, ``.chkpt``/``.itr``, ``.ttm`` and the ``.laser``
-log at their intervals.  A rebin that overflows the cell capacity grows
-the slot axis and retries the block from the pre-block state; past
-``REGRID_CAPACITY`` slots the grid is first re-derived for the current
-density (``_regrid_scene``).
+driver writes ``.eng``, ``.chkpt``/``.itr`` (with ``.nrb``), ``.ttm`` and
+the ``.laser`` log at their intervals.  The flagship physics rides the
+fused loop as in imd_tpu: the TMM laser (``tmm``, models/tmm.py) inside
+calc_ttm, the NRB rear boundary (``nrb_*``, models/nrb.py) inside the step,
+FILTER (``filter_*``, models/filter.py) between blocks every
+``filter_int`` steps, and ``ttm_solver implicit``.  A rebin that overflows
+the cell capacity grows the slot axis and retries the block from the
+pre-block state; past ``REGRID_CAPACITY`` slots the grid is first
+re-derived for the current density (``_regrid_scene``).
 
 A pair potential (``potfile``, ``lj_*``/``ljg_*``, ``morse_*``,
 ``buck_*``) runs the general step instead (``make_step_fn``, ``run_general``):
@@ -32,7 +36,10 @@ the blocks stay, so output lands on the same steps as imd_tpu's.
 Every setting that would take imd_tpu off the fused path, or onto a
 feature this port does not have yet, raises NotImplementedError naming the
 tag and the ROADMAP item (``UNPORTED``).  The port never silently computes
-something else.
+something else.  One recorded exception (ROADMAP C6): ``filter_int 0``
+enables FILTER without a cadence, which moves imd_tpu off its fused loop
+onto the general step where FILTER never fires; the port runs such a file
+on the fused loop with FILTER off, the same result.
 """
 
 from __future__ import annotations
@@ -52,8 +59,10 @@ from imd_tpu_torch.io.chkpt import ChkptData, read_chkpt, read_itr, \
     write_chkpt, write_itr
 from imd_tpu_torch.io.eng import EngWriter
 from imd_tpu_torch.io.ttm_io import write_ttm
+from imd_tpu_torch.models import nrb as nrb_mod
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.models.eos import FEGEos
+from imd_tpu_torch.models.tmm import do_tmm, make_tmm_params
 from imd_tpu_torch.kernels import MAX_NT
 from imd_tpu_torch.models.potential import (EAMPotential, buckingham_table,
                                             eam_to_fastpoly, lj_table,
@@ -66,7 +75,8 @@ from imd_tpu_torch.ops.forces_pallas import (compute_pair_forces_pallas,
                                              eam_kernels_cl,
                                              eam_kernels_cl_mt,
                                              make_neighbor_views)
-from imd_tpu_torch.ops.fused_step import (cl_to_scene, make_fused_step,
+from imd_tpu_torch.ops.fused_step import (cl_to_scene, make_filter_apply,
+                                          make_fused_step,
                                           make_fused_ttm_step)
 from imd_tpu_torch.ops.geometry import (Box, CellGrid, choose_grid,
                                         measured_capacity, np_dtype,
@@ -131,9 +141,11 @@ UNPORTED = (
      or c.nclones > 1 or any(r > 0 for r in c.epitax_rate), "A9c"),
     ("laser_rescale_mode other than 0 and 4",
      lambda c: c.ttm.enabled and c.laser.rescale_mode not in (0, 4), "A9c"),
-    ("tmm", lambda c: c.tmm.enabled, "A7"),
-    ("nrb_*", lambda c: c.nrb.enabled, "A7"),
-    ("filter_*", lambda c: c.filter.enabled, "A7"),
+    # the general step carries none of them (imd_tpu's does)
+    ("tmm / nrb_* / filter_* with a pair potential (potfile, lj_*, "
+     "morse_*, buck_*)",
+     lambda c: _any_set(c, _PAIR_TAGS) and (c.tmm.enabled or c.nrb.enabled
+                                            or c.filter.enabled), "A9b"),
     ("vlatdim", lambda c: c.ttm.enabled and c.ttm.vlatdim > 0, "A7"),
     ("elecpress", lambda c: c.ttm.enabled and c.ttm.elecpress, "A7"),
     ("colrad", lambda c: c.ttm.enabled and c.colrad, "A7"),
@@ -141,8 +153,6 @@ UNPORTED = (
     ("3-D TTM (ttmdimy / ttmdimz > 1)",
      lambda c: c.ttm.enabled and (c.ttm.fd_ny > 1 or c.ttm.fd_nz > 1),
      "A7"),
-    ("ttm_solver implicit",
-     lambda c: c.ttm.enabled and c.ttm.solver != "explicit", "A5"),
     ("cpu_dim > 1 (several devices)",
      lambda c: int(np.prod(c.cpu_dim)) > 1, "A11"),
     ("a restart of a TTM run (-r with ensemble ttm)",
@@ -233,12 +243,16 @@ class Simulation:
         self.block_seconds = []
         self.nbl_count = 0      # skin rebins of the general loop's run
         self.n_observe = 0
+        self.n_filter = 0       # FILTER applications of the fused loop
+        # seconds of the set-up parts that the flagship physics adds
+        self.setup_parts = {}
         self.eng: Optional[EngWriter] = None
         t0 = time.perf_counter()
         self._load_potential()
         self._load_atoms()
         self._select_engine()
         self._select_integrator()
+        self.nrb_state = self._init_nrb()
         _sync(self.device)
         self.setup_seconds = time.perf_counter() - t0
         self.start_time = time.time()
@@ -410,6 +424,9 @@ class Simulation:
                 f"overflowed cell capacity {self.grid.capacity}")
         if n_atoms(self.scene) != int(m.sum()):
             raise RuntimeError("phase handover lost atoms")
+        # the NRB reference state keys on the handed-over atoms
+        if self.nrb_state is not None:
+            self.nrb_state = self._nrb_from_scene()
 
     def _select_engine(self):
         """Always the port's kernels on the fitted polynomials, the EAM
@@ -426,12 +443,41 @@ class Simulation:
     def _select_integrator(self):
         cfg = self.cfg
         self.ensemble = cfg.ensemble
-        self.ttm_params = self.eos = None
+        self.ttm_params = self.eos = self.tmm_params = None
         if self.ensemble != "ttm":
             return
         cfg.ttm.enabled = True
         self.ttm_params = ttm_mod.make_params(cfg.ttm, self.box, self.cutoff)
         self.eos = self._select_eos()
+        if cfg.tmm.enabled:
+            t0 = time.perf_counter()
+            self.tmm_params = make_tmm_params(cfg.tmm, self.dtype,
+                                              self.device)
+            self.setup_parts["tmm_params"] = time.perf_counter() - t0
+
+    def _init_nrb(self):
+        """The NRB tables (simulation.py:901-916): read from
+        ``<restart_base>.nrb`` on a restart (the layer detection must not
+        rerun on a deformed configuration, nrb_readrestart,
+        imd_nrb.c:2217), else detected on the start configuration."""
+        cfg = self.cfg
+        if not cfg.nrb.enabled:
+            return None
+        t0 = time.perf_counter()
+        path = (self._path(cfg.restart_base + ".nrb") if cfg.restart_base
+                else "")
+        if path and os.path.exists(path):
+            state = nrb_mod.read_nrb(path, self.dtype, self.device)
+        else:
+            state = self._nrb_from_scene()
+        self.setup_parts["init_nrb"] = time.perf_counter() - t0
+        return state
+
+    def _nrb_from_scene(self):
+        cfg = self.cfg
+        mass = float(cfg.masses[0]) if cfg.masses else 26.9815
+        return nrb_mod.init_nrb(self.scene, cfg.nrb.alat, cfg.nrb.k,
+                                cfg.nrb.eps, mass, cfg.pbc_dirs)
 
     def _select_eos(self) -> FEGEos:
         """The closed-form FEG EOS; the reference's tabulated EOS (EOS_*.txt
@@ -467,24 +513,48 @@ class Simulation:
             return self.run_general(steps)
         return self.run_fused(steps)
 
+    def _filter_int(self) -> int:
+        """FILTER's cadence; 0 (off) also for ``filter_int 0``, which
+        enables FILTER but never fires (ROADMAP C6)."""
+        f = self.cfg.filter
+        return f.interval if f.enabled and f.interval > 0 else 0
+
     def _build(self, template: Scene, ttm_grid, step0: int):
-        """The fused step and its carry for ``template`` (rebuilt after a
-        capacity growth or a re-grid).  The stored FD index restarts at
-        -1, as imd_tpu's does when the slot layout changes."""
+        """The fused step, its carry and the FILTER application (or None)
+        for ``template`` (rebuilt after a capacity growth or a re-grid).
+        The stored FD index restarts at -1, as imd_tpu's does when the
+        slot layout changes."""
         cfg = self.cfg
+        filt = (make_filter_apply(template, cfg.filter, self.cutoff)
+                if self._filter_int() else None)
         if self.ensemble == "ttm":
             laser = cfg.laser if cfg.laser.sigma_e > 0 else None
             step, cl = make_fused_ttm_step(
                 template, self.eam_run, cfg.timestep, self.ttm_params,
-                self.eos, laser, ntypes=cfg.ntypes, timer=self.timer,
-                counters=self.counters)
+                self.eos, laser, nrb_state=self.nrb_state,
+                tmm_params=self.tmm_params, ntypes=cfg.ntypes,
+                timer=self.timer, counters=self.counters)
             fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
                              device=self.device)
-            return step, (cl, ttm_grid, fdi, step0)
+            return step, (cl, ttm_grid, fdi, step0), filt
         step, cl = make_fused_step(template, self.eam_run, cfg.timestep,
+                                   nrb_state=self.nrb_state,
                                    ntypes=cfg.ntypes, timer=self.timer,
                                    counters=self.counters)
-        return (lambda c: (step(c)[0],)), (cl,)
+        return (lambda c: (step(c)[0],)), (cl,), filt
+
+    def _apply_filter(self, filt, carry):
+        """FILTER on the carry at a block boundary (simulation.py:2825);
+        the stored FD index travels with its atom."""
+        self.n_filter += 1
+        with self.timers.section("filter"):
+            if len(carry) > 1:
+                cl, fdi = filt(carry[0], carry[2])
+                carry = (cl, carry[1], fdi, *carry[3:])
+            else:
+                carry = (filt(carry[0]),)
+            _sync(self.device)
+        return carry
 
     def observe(self, cl, template: Scene, gstep: int, ttm_grid):
         """Observables of a cells-last state with the B4 kernels (K4, K5;
@@ -519,12 +589,14 @@ class Simulation:
         cfg = self.cfg
         steps = self._steps_to_run(steps)
         ttm_on = self.ensemble == "ttm"
-        intervals = [i for i in (cfg.eng_int, cfg.checkpt_int, cfg.ttm_int)
-                     if i > 0]
+        filter_int = self._filter_int()
+        io_intervals = [i for i in (cfg.eng_int, cfg.checkpt_int,
+                                    cfg.ttm_int) if i > 0]
+        intervals = io_intervals + ([filter_int] if filter_int else [])
         block = max(1, min([steps] + intervals) if intervals
                     else min(steps, 100))
         template = self.scene
-        step, carry = self._build(
+        step, carry, filt = self._build(
             template, self._initial_ttm_grid() if ttm_on else None,
             self.step_count)
         self.timers.start("total")
@@ -551,7 +623,7 @@ class Simulation:
                     overflow=torch.zeros_like(prev_carry[0].overflow))
                 template, grow_tries, regrid_at = self._overflow_retry(
                     sc_prev, grow_tries, regrid_at, done)
-                step, carry = self._build(
+                step, carry, filt = self._build(
                     template, prev_carry[1] if ttm_on else None,
                     self.step_count + done)
                 continue
@@ -559,24 +631,29 @@ class Simulation:
             done += b
             gstep = self.step_count + done
             control = self._control_files()
-            if not (any(_iv_due(gstep, i) for i in intervals)
+            if (any(_iv_due(gstep, i) for i in io_intervals)
                     or any(control) or done >= steps):
-                continue
-            state = self.observe(carry[0], template, gstep,
-                                 carry[1] if ttm_on else None)
-            with self.timers.section("io"):
-                if _iv_due(gstep, cfg.eng_int):
-                    self._write_eng(state, nactive)
-                    if ttm_on:
-                        self._write_laser_log(state, gstep)
-                if _iv_due(gstep, cfg.checkpt_int):
-                    self.write_checkpoint(state, gstep // cfg.checkpt_int)
-                if ttm_on and _iv_due(gstep, cfg.ttm_int):
-                    write_ttm(self._path(
-                        f"{cfg.outfiles}.{gstep // cfg.ttm_int}.ttm"),
-                        state.ttm_grid)
-                if self._obey_control(state, gstep, *control):
-                    break
+                state = self.observe(carry[0], template, gstep,
+                                     carry[1] if ttm_on else None)
+                with self.timers.section("io"):
+                    if _iv_due(gstep, cfg.eng_int):
+                        self._write_eng(state, nactive)
+                        if ttm_on:
+                            self._write_laser_log(state, gstep)
+                    if _iv_due(gstep, cfg.checkpt_int):
+                        self.write_checkpoint(state,
+                                              gstep // cfg.checkpt_int)
+                    if ttm_on and _iv_due(gstep, cfg.ttm_int):
+                        write_ttm(self._path(
+                            f"{cfg.outfiles}.{gstep // cfg.ttm_int}.ttm"),
+                            state.ttm_grid)
+                    if self._obey_control(state, gstep, *control):
+                        break
+            if filt is not None and done < steps \
+                    and _iv_due(gstep, filter_int):
+                # the next block starts from the filtered, rebinned state
+                # (blocks end on multiples of filter_int)
+                carry = self._apply_filter(filt, carry)
         if state is None:
             state = self.observe(carry[0], template, self.step_count + done,
                                  carry[1] if ttm_on else None)
@@ -816,22 +893,36 @@ class Simulation:
             volume=vol, ttm_eng=ttm_eng)
 
     def _write_laser_log(self, state: SimState, gstep: int):
-        """The .laser log line (simulation.py:3182) without a TMM solver:
-        step, time, NaN intensity, absorbed fluence, NaN reflectivity."""
+        """The .laser log line (simulation.py:3182; the reference's
+        per-step printf, imd_ttm.c:150-155): step, time, intensity I_t,
+        absorbed fluence (grid.eabs over the y*z area, eV -> J/m^2) and
+        reflectivity, with the TMM solver also laser_active.  I_t, refl
+        and laser_active come from a diagnostic do_tmm on the current
+        grid; without the TMM they are NaN and the column is left out."""
         cfg = self.cfg
+        g = state.ttm_grid
         t_si = gstep * float(cfg.timestep) * units.TIME_UNIT_S
+        it = refl = float("nan")
+        active = ""
+        if self.tmm_params is not None:
+            _, diag = do_tmm(g, self.ttm_params, self.tmm_params,
+                             torch.tensor(t_si, dtype=g.temp.dtype,
+                                          device=g.temp.device))
+            it, refl, on = torch.stack([
+                diag["I_t"], diag["refl"],
+                diag["laser_active"].to(diag["refl"].dtype)]).tolist()
+            active = f" {int(on)}"
         hts = self.box.heights()
         area = float(hts[1] * hts[2]) * 1e-20          # A^2 -> m^2
-        eabs = float(state.ttm_grid.eabs) * units.EV_TO_J / max(area,
-                                                                 1e-300)
-        nan = float("nan")
+        eabs = float(g.eabs) * units.EV_TO_J / max(area, 1e-300)
         path = self._path(cfg.outfiles + ".laser")
         header = not os.path.exists(path)
         with open(path, "a") as f:
             if header:
-                f.write("# step t_fs I_t_Wm2 Eabs_Jm2 refl\n")
-            f.write(f"{gstep} {t_si * 1e15:.4f} {nan:.6e} {eabs:.6e} "
-                    f"{nan:.6e}\n")
+                f.write("# step t_fs I_t_Wm2 Eabs_Jm2 refl"
+                        + (" laser_active" if active else "") + "\n")
+            f.write(f"{gstep} {t_si * 1e15:.4f} {it:.6e} {eabs:.6e} "
+                    f"{refl:.6e}{active}\n")
 
     def _chkpt_data(self, state: SimState) -> ChkptData:
         """Checkpoint record: number type mass x y z vx vy vz Epot, and the
@@ -854,8 +945,8 @@ class Simulation:
                          box_z=h[2])
 
     def write_checkpoint(self, state: SimState, fzhlr: int):
-        """<outfiles>.<fzhlr:05d>.{chkpt,itr[,ttm]}; fzhlr -1 names the
-        end-of-run "-final" set (imd_io_3d.c:995).  The TTM restart
+        """<outfiles>.<fzhlr:05d>.{chkpt,itr[,ttm][,nrb]}; fzhlr -1 names
+        the end-of-run "-final" set (imd_io_3d.c:995).  The TTM restart
         sidecar (.ttmaux.npz) is not written: TTM restarts are not
         ported."""
         cfg = self.cfg
@@ -868,3 +959,5 @@ class Simulation:
                   box_x=d.box_x, box_y=d.box_y, box_z=d.box_z)
         if cfg.ttm.enabled and state.ttm_grid is not None:
             write_ttm(base + ".ttm", state.ttm_grid)
+        if self.nrb_state is not None:
+            nrb_mod.write_nrb(base + ".nrb", self.nrb_state)

@@ -412,13 +412,18 @@ UNPORTED = {
     "stiweb": ("stiweb_a 1.0\n", "A9"),
     "ensemble_nvt": ("ensemble nvt\n", "A9"),
     "shock": ("shock_mode 1\n", "A9"),
-    "tmm": ("ensemble ttm\ntmm\nlambda 800e-9\nI0 2e17\n"
-            "laser_t_0 300e-15\nlaser_sigma_t 100e-15\n", "A7"),
-    "nrb": ("nrb_alat 4.05\nnrb_k 5.0\n", "A7"),
-    "filter": ("filter_int 4\nfilter_min_x 1.0\n", "A7"),
+    # the flagship physics runs on the fused EAM loop; the general step
+    # of a pair potential carries none of it
+    "tmm": ("lj_epsilon 0.35\nlj_sigma 2.62\ntmm\nlambda 800e-9\n"
+            "I0 2e17\nlaser_t_0 300e-15\nlaser_sigma_t 100e-15\n", "A9b"),
+    "nrb": ("lj_epsilon 0.35\nlj_sigma 2.62\nnrb_alat 4.05\nnrb_k 5.0\n",
+            "A9b"),
+    "filter": ("lj_epsilon 0.35\nlj_sigma 2.62\nfilter_int 4\n"
+               "filter_min_x 1.0\n", "A9b"),
     "vlattice": ("ensemble ttm\nvlatdim 4\n", "A7"),
     "ttm_3d": ("ensemble ttm\nttmdimy 2\n", "A7"),
-    "implicit": ("ensemble ttm\nttm_solver implicit\n", "A5"),
+    "implicit": ("ensemble ttm\nttm_solver implicit\nlj_epsilon 0.35\n"
+                 "lj_sigma 2.62\n", "A9b"),
     "cpu_dim": ("cpu_dim 2 1 1\n", "A11"),
     "dist_int": ("dist_int 4\n", "A6"),
     "shift": ("shiftx_front 10.0\n", "A6"),

@@ -233,16 +233,91 @@ def test_two_species_split_runs_the_alloy_kernels(setup):
     assert torch.equal(got[1].temp, want[1].temp)
 
 
+def _flagship_inputs(jscene, tscene):
+    """The NRB tables of the hot scene's x-max layer (imd_tpu's, and the
+    port's copy) and the TMM laser of a pulse that peaks inside the run
+    (t0 6 fs, sigma 5 fs, 1e17 W/m^2)."""
+    from imd_tpu.config import TMMConfig
+    from imd_tpu.models import nrb as j_nrb
+    from imd_tpu.models import tmm as j_tmm
+    jst = j_nrb.init_nrb(jscene, 4.05, nrb_k=2.0, pbc=(1, 1, 1))
+    jtmm = j_tmm.make_tmm_params(TMMConfig(
+        enabled=True, lambda_m=800e-9, I0=1e17, t0_s=6e-15,
+        sigma_t_s=5e-15), jnp.float64)
+    return (jst, convert.nrb_state_from_jax(jst, device="cpu"), jtmm,
+            convert.tmm_params_from_jax(jtmm, device="cpu"))
+
+
+FLAG_STEPS = 6
+
+
+def test_flagship_fused_ttm_step_matches_jax(setup):
+    """The flagship step: TTM with the implicit solver (10 substeps) and
+    the TMM laser, NRB momenta on the x-max layer, against imd_tpu's fused
+    step for 6 steps through the pulse (atoms by id to 1e-9, the grid to
+    1e-9 relative); the boundary atoms keep their set momenta through the
+    rebins, and the step reads nothing but the skin check to the host."""
+    jscene, jeam, tscene, team = setup
+    jst, tst, jtmm, ttmm = _flagship_inputs(jscene, tscene)
+    cfg = TTMConfig(enabled=True, fd_nx=4, fd_min_atoms=8,
+                    solver="implicit", n_sub=10)
+    jtp = j_ttm.make_params(cfg, jscene.grid.box, 5.0, jnp.float64)
+    tp = convert.from_ttm_params(jtp)
+    jstep, jcl = j_fused.make_fused_ttm_step(
+        jscene, jeam, DT, jtp, j_eos.FEGEos(), None, nrb_state=jst,
+        tmm_params=jtmm)
+    jstep = jax.jit(jstep)
+    jgrid0 = j_ttm.make_grid(jtp, jnp.float64)
+    jcarry = (jcl, jgrid0, -jnp.ones(jcl.mass.size, jnp.int32),
+              jnp.zeros((), jnp.int32))
+    counters = StepCounters()
+    tstep, tcl = t_fused.make_fused_ttm_step(
+        tscene, team, DT, tp, FEGEos(), None, nrb_state=tst,
+        tmm_params=ttmm, counters=counters)
+    tcarry = (tcl, convert.from_ttm_grid(jgrid0, device="cpu"),
+              torch.full((tcl.mass.numel(),), -1, dtype=torch.int32), 0)
+    for _ in range(FLAG_STEPS):
+        jcarry = jstep(*jcarry)
+        tcarry = tstep(*tcarry)
+    assert counters.rebins >= 1, "the run must exercise an in-loop rebin"
+    assert counters.host_syncs == FLAG_STEPS
+    assert counters.cfl_substeps == 10 * FLAG_STEPS
+    _assert_same_atoms(jcarry[0], tcarry[0])
+    jg, tg = jcarry[1], convert.to_numpy(tcarry[1])
+    for name in ("temp", "U", "xi", "md_temp", "dens", "source"):
+        np.testing.assert_allclose(tg[name], np.asarray(getattr(jg, name)),
+                                   rtol=TOL, atol=1e-300, err_msg=name)
+    assert float(tg["eabs"]) == pytest.approx(float(jg.eabs), rel=TOL)
+    assert float(tg["eabs"]) > 0.0
+
+
+def test_flagship_fused_md_step_matches_jax(setup):
+    """The pure-MD twin with NRB: 6 steps against imd_tpu's, atoms by id to
+    1e-9."""
+    jscene, jeam, tscene, team = setup
+    jst, tst, _, _ = _flagship_inputs(jscene, tscene)
+    jstep, jcl = j_fused.make_fused_step(jscene, jeam, DT, nrb_state=jst)
+    jstep = jax.jit(jstep)
+    tstep, tcl = t_fused.make_fused_step(tscene, team, DT, nrb_state=tst)
+    for _ in range(FLAG_STEPS):
+        jcl, _ = jstep(jcl)
+        tcl, _ = tstep(tcl)
+    _assert_same_atoms(jcl, tcl)
+
+
 def test_unported_arguments_raise(setup):
+    """mesh, VLAT, ELECPRESS, COLRAD and FDTD raise (TMM and NRB run)."""
     _, _, tscene, team = setup
     with pytest.raises(NotImplementedError, match="mesh"):
         t_fused.make_fused_step(tscene, team, DT, mesh=object())
     with pytest.raises(ValueError, match="engine"):
         t_fused.make_fused_step(tscene, team, DT, engine="pallas2")
-    with pytest.raises(NotImplementedError, match="tmm_params"):
-        t_fused.make_fused_ttm_step(tscene, team, DT, None, FEGEos(), LASER,
-                                    tmm_params=object())
-    for name in ("tmm_params", "colrad", "vlat"):
+    for name, arg in (("vlat", object()), ("elecpress", True),
+                      ("colrad", object()), ("fdtd_params", object())):
+        with pytest.raises(NotImplementedError, match=name):
+            t_fused.make_fused_ttm_step(tscene, team, DT, None, FEGEos(),
+                                        LASER, **{name: arg})
+    for name in ("colrad", "vlat"):
         with pytest.raises(NotImplementedError, match=name):
             t_ttm.calc_ttm(None, None, None, None, None, None, DT, None,
                            **{name: object()})
