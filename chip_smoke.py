@@ -128,9 +128,30 @@ I_t, tests/test_tmm.py's 320-cell thick film meets the same flux checks
 in float32, and .laser's absorbed fluence rises; then K1/K2/K4/K5 are
 held against their plain versions on the run's last state.
 
+Phase 9 runs phase 8's file and start (20 -> 10 steps from step 285) with
+``vlatdim 1000``, ``elecpress 1``, ``colrad`` and ``colrad_mpi 1`` added
+(the closed-form rate fits: no state tables on disk) through ``cli.main``
+in float32, launch counters set to 0 just before: rc 0, K1/K2 once a step,
+K4/K5 once per observe(), K3 three per rebin and nothing else, a finite
+state, the -final.ttm with 17 populations, 5 power columns and 1000
+virtual rows; on the last state one calc_ttm, one COLRAD step (its tries
+and host reads), one vlat_substep and the ELECPRESS force are timed, the
+COLRAD step in float32 is held against float64 on the same grid, each
+active cell's populations keep their sum through the step and sum to its
+n_tot (1e-4), and
+K1/K2/K4/K5 are held against their plain versions.  Phase 10 runs
+run1m's file with ``fdtd`` in place of ``tmm`` for 4 steps from step 0
+of start.chkpt (the envelope at 1.1% of E0): 649 Maxwell steps a step
+with the explicit diffusion substeps the CFL count asks for, two host
+reads a step (skin check, CFL count), .laser with I_t and refl NaN and a
+positive absorbed fluence, finite fields; on the last state step_1d and
+one diffusion substep are timed and 649 Maxwell steps in float32 are held
+against float64 (E field and source as shares of their maxima).
+
 Prints one JSON line each for the four main paths (one and two species,
 "split", "ab"), the bench configuration, the two driver runs, the LJ
-driver run and the ablation run (atom-steps/s, ms per step, CUDA-event
+driver run, the ablation run and phases 9 and 10 (atom-steps/s, ms per
+step, CUDA-event
 phase times with calc_ttm and nrb, calc_ttm by part and its CUDA kernels
 under torch.profiler, ms per FILTER application, the set-up seconds of
 init_nrb and the TMM tables, peak memory, launches), one
@@ -142,7 +163,7 @@ are unspecified; ptxas' registers, spill bytes and static shared memory;
 for the full-stencil rows and K10-K12 the launch tile and its dynamic
 shared memory at the table's shapes; K12's row also its launches by
 capacity and its time at cap 24 and on phase 7's last state; the rows
-of K1-K5 also their launches in phase 8; B8's
+of K1-K5 also their launches in phases 8, 9 and 10; B8's
 rows carry K4/K5's times), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
@@ -231,6 +252,31 @@ def time_ms(fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` under torch.profiler after a warm-up: the CUDA
+    kernels it launches, their summed device time, the call's time (CUDA
+    events) and whence the device's idle share in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
+    ms = a.elapsed_time(b)
+    return {"kernels": sum(e.count for e in kern), "device_ms": dev_ms,
+            "ms": ms, "idle_share": 1.0 - dev_ms / ms if dev_ms > 0 else None}
 
 
 def half_shape(cap: int, kind: str) -> dict:
@@ -487,6 +533,32 @@ def ablation_text(drop_nrb: bool = False, steps: int = ABL_STEPS) -> str:
     return text
 
 
+def ablation_start(tmp: Path):
+    """run1m's start.chkpt with ABL_VAPOUR's 16 atoms (new ids, at rest)
+    written to ``tmp``, and the EAM tables linked there.  Returns run1m's
+    start data and the sorted film ids."""
+    import numpy as np
+
+    from imd_tpu_torch.io.chkpt import read_chkpt, write_chkpt
+    d0 = read_chkpt(str(RUN1M / "start.chkpt"))
+    n_film = len(d0.number)
+    nv = len(ABL_VAPOUR)
+    vap_ids = np.arange(nv) + int(d0.number.max()) + 1
+    d1 = dataclasses.replace(
+        d0, number=np.concatenate([d0.number, vap_ids]),
+        type=np.concatenate([d0.type, np.zeros(nv, d0.type.dtype)]),
+        mass=np.concatenate([d0.mass, np.full(nv, d0.mass[0])]),
+        pos=np.concatenate([d0.pos, np.asarray(ABL_VAPOUR)]),
+        vel=np.concatenate([d0.vel, np.zeros((nv, 3))]),
+        data=np.concatenate([d0.data.reshape(n_film, -1),
+                             np.zeros((nv, d0.data.reshape(
+                                 n_film, -1).shape[1]))]))
+    write_chkpt(str(tmp / "start.chkpt"), d1, binary=True, double=True)
+    for name in ("pair.pt", "embed.pt", "rho.pt"):
+        (tmp / name).symlink_to(RUN1M / name)
+    return d0, np.sort(d0.number)
+
+
 def tmm_checks(sim, state) -> dict:
     """The TMM solver on the card, on the ablation run's last TTM grid at
     the pulse's peak: the float32 (complex64) solve against the float64
@@ -574,7 +646,6 @@ def calc_ttm_parts(sim, state) -> dict:
     under torch.profiler: the CUDA kernels it launches and their summed
     device time, whence the device's idle share in it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from imd_tpu_torch import units
     from imd_tpu_torch.models import tmm as t_tmm
@@ -603,17 +674,11 @@ def calc_ttm_parts(sim, state) -> dict:
                g, tp, tau, tp.n_sub, True), 5),
            "fill_mesh_ms": time_ms(lambda: t_ttm.fill_mesh(g, tp, sim.eos,
                                                            True), 5)}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        whole()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in kern)
-    out["profiled_kernels"] = sum(e.count for e in kern)
-    out["profiled_device_ms"] = dev_us / 1e3
-    out["idle_share"] = (1.0 - out["profiled_device_ms"] / out["calc_ttm_ms"]
-                         if dev_us > 0 else None)
+    prof = profiled(whole)
+    out["profiled_kernels"] = prof["kernels"]
+    out["profiled_device_ms"] = prof["device_ms"]
+    out["idle_share"] = (1.0 - prof["device_ms"] / out["calc_ttm_ms"]
+                         if prof["device_ms"] > 0 else None)
     print(f"calc_ttm on the ablation run's last state: {out}")
     return out
 
@@ -635,28 +700,13 @@ def run_ablation(dev_name: str, smi: str):
 
     from imd_tpu_torch import __main__ as cli
     from imd_tpu_torch import kernels
-    from imd_tpu_torch.io.chkpt import read_chkpt, write_chkpt
     from imd_tpu_torch.phases import CudaPhaseTimer
 
     with tempfile.TemporaryDirectory(prefix="imd_abl_") as tmp:
         tmp = Path(tmp)
-        d0 = read_chkpt(str(RUN1M / "start.chkpt"))
-        n_film = len(d0.number)
-        film_ids = np.sort(d0.number)
+        d0, film_ids = ablation_start(tmp)
+        n_film = len(film_ids)
         nv = len(ABL_VAPOUR)
-        vap_ids = np.arange(nv) + int(d0.number.max()) + 1
-        d1 = dataclasses.replace(
-            d0, number=np.concatenate([d0.number, vap_ids]),
-            type=np.concatenate([d0.type, np.zeros(nv, d0.type.dtype)]),
-            mass=np.concatenate([d0.mass, np.full(nv, d0.mass[0])]),
-            pos=np.concatenate([d0.pos, np.asarray(ABL_VAPOUR)]),
-            vel=np.concatenate([d0.vel, np.zeros((nv, 3))]),
-            data=np.concatenate([d0.data.reshape(n_film, -1),
-                                 np.zeros((nv, d0.data.reshape(
-                                     n_film, -1).shape[1]))]))
-        write_chkpt(str(tmp / "start.chkpt"), d1, binary=True, double=True)
-        for name in ("pair.pt", "embed.pt", "rho.pt"):
-            (tmp / name).symlink_to(RUN1M / name)
         (tmp / "abl.imd").write_text(ablation_text())
         # NRB's layer: the atoms within alat/4 of the film's x-max
         alat = 4.05
@@ -684,17 +734,7 @@ def run_ablation(dev_name: str, smi: str):
               f"ablation: {steps_run} steps to step {state.step}")
         n_obs = sim.n_observe
         check(n_obs == 3, f"ablation observe() calls {n_obs} (290, 300, 305)")
-        want = {"eam_rho": steps_run, "eam_force": steps_run,
-                "eam_rho_e": n_obs, "eam_force_s": n_obs}
-        for k, v in want.items():
-            check(launches[k] == v, f"ablation: {k} launched {launches[k]} "
-                  f"times (expected {v})")
-        others = {k: v for k, v in launches.items()
-                  if v and k not in want and k != "compact"}
-        check(not others, f"ablation: other kernels launched {others}")
-        check(launches["compact"] == 3 * c.rebins,
-              f"ablation: K3 {launches['compact']} launches in {c.rebins} "
-              f"rebins")
+        launch_checks(launches, steps_run, n_obs, c.rebins, "ablation")
         # the implicit solver: n_sub substeps a step and no CFL read; the
         # one host read a step is the skin check
         check(c.cfl_substeps == ABL_N_SUB * steps_run,
@@ -780,6 +820,369 @@ def run_ablation(dev_name: str, smi: str):
         "launches": launches, "max_memory_allocated_bytes": peak,
         "device": dev_name, "nvidia_smi": smi}
     print(json.dumps({"ablation": report}))
+    return report, sim, state
+
+
+PHYS_STEPS = 10     # phase 9: steps 285 -> 295, across the pulse's peak
+PHYS_TAGS = "vlatdim 1000\nelecpress 1\ncolrad\ncolrad_mpi 1\n"
+FDTD_STEPS = 4      # phase 10: steps 0 -> 4 of start.chkpt
+FDTD_MAXWELL = 649  # Maxwell steps per MD step on run1m's 9.418 A cells
+
+
+def launch_checks(launches, steps, n_obs, rebins, what):
+    """K1/K2 once a step, K4/K5 once per observe(), K3 three per rebin,
+    and nothing else."""
+    want = {"eam_rho": steps, "eam_force": steps, "eam_rho_e": n_obs,
+            "eam_force_s": n_obs, "compact": 3 * rebins}
+    for k, v in want.items():
+        check(launches[k] == v, f"{what}: {k} launched {launches[k]} times "
+              f"(expected {v})")
+    others = {k: v for k, v in launches.items() if v and k not in want}
+    check(not others, f"{what}: other kernels launched {others}")
+
+
+def colrad_parts(sim, state) -> dict:
+    """Phase 9's parts on the run's last state (CUDA events): one calc_ttm
+    with the run's settings (COLRAD with its MULTIPHOTON flux, 10
+    implicit substeps with the TMM and the virtual lattice at each), one
+    COLRAD step (apply_colrad) with its tries and host reads, one
+    vlat_substep and the ELECPRESS force; then the COLRAD step on the last
+    grid in float32 against float64 (T_e, n_e and the populations, the
+    last per cell as a share of its total), and its conservation: each
+    active cell's populations keep their sum within 1e-4 through the
+    step (a fresh one is seeded with n_tot) and sum to the cell's current
+    n_tot = dens / m_atom within 1e-4."""
+    import torch
+
+    from imd_tpu_torch import units
+    from imd_tpu_torch.models import colrad as t_colrad
+    from imd_tpu_torch.models import ttm as t_ttm
+    from imd_tpu_torch.ops import forces_win as win
+    from imd_tpu_torch.ops.fused_step import scene_to_cl
+    from imd_tpu_torch.phases import StepCounters
+
+    cl = scene_to_cl(state.scene)
+    _, nn = win.eam_rho(cl.xi, cl.alive, sim.eam_run, sim.grid)
+    tp, g, dt = sim.ttm_params, state.ttm_grid, sim.cfg.timestep
+    cs, vs = state.cstate, state.vstate
+    x = cl.xi[:, 0, :].reshape(-1)
+    atoms = (x, tuple(cl.mom[:, c, :].reshape(-1) for c in range(3)),
+             cl.mass.reshape(-1), cl.alive.reshape(-1))
+    fdi = torch.full((x.numel(),), -1, dtype=torch.int32, device="cuda")
+    t = torch.full((), (state.step - 1) * dt, dtype=x.dtype, device="cuda")
+    phi = sim.colrad_phi(t * units.IMD_TIME_S)
+
+    def whole():
+        return t_ttm.calc_ttm(
+            g, atoms, tp, sim.eos, nn.reshape(-1), fdi, dt, t,
+            tmm_params=sim.tmm_params,
+            colrad=(sim.colrad_tab, sim.colrad_step, cs, sim.colrad_phi),
+            vlat=(sim.vlat_params, vs))
+
+    gm = t_ttm.fill_mesh(g, tp, sim.eos, False)
+    counters = StepCounters()
+
+    def colrad_once(ctr=None):
+        return t_colrad.apply_colrad(gm, cs, sim.colrad_tab, tp,
+                                     sim.colrad_step, dt, phi, counters=ctr)
+
+    colrad_once(counters)
+    tau = dt / tp.n_sub
+    out = {"calc_ttm_ms": time_ms(whole, 2),
+           "colrad_step_ms": time_ms(colrad_once, 2),
+           "colrad_tries": counters.colrad_tries,
+           "colrad_host_reads": counters.host_syncs,
+           "vlat_substep_ms": time_ms(lambda: t_ttm.vlat_substep(
+               g, vs, tp, sim.vlat_params, sim.eos, tau), 5),
+           "elecpress_ms": time_ms(lambda: t_ttm.electron_pressure_force(
+               g, tp, sim.eos), 5)}
+    # launches and the device's idle share: one calc_ttm, one COLRAD step
+    # (its kernels over its tries), one vlat_substep
+    out["calc_ttm_profiled"] = profiled(whole)
+    prof = profiled(colrad_once)
+    prof["kernels_per_try"] = prof["kernels"] / counters.colrad_tries
+    out["colrad_step_profiled"] = prof
+    out["vlat_substep_profiled"] = profiled(lambda: t_ttm.vlat_substep(
+        g, vs, tp, sim.vlat_params, sim.eos, tau))
+
+    # float32 against float64 on the same grid
+    step64 = t_colrad.make_colrad_step(
+        sim.colrad_tab, evolve_te=True,
+        mpi_const=t_colrad.mpi_constants(sim.cfg.tmm.lambda_m))
+    g64 = gm.replace(**{k: getattr(gm, k).double() for k in (
+        "temp", "ne", "Z", "dens", "Ce", "md_temp")})
+    cs64 = cs.replace(c=cs.c.double(), p=cs.p.double())
+    g1, c1, _ = colrad_once()
+    g2, c2, _ = t_colrad.apply_colrad(g64, cs64, sim.colrad_tab, tp, step64,
+                                      dt, phi.double())
+    act = t_ttm.active_mask(gm, tp)
+    tot = c2.c.sum(1).clamp(min=1.0)
+    out["f32_vs_f64"] = {
+        "d_temp_rel": float(((g1.temp.double() - g2.temp).abs()
+                             / g2.temp.abs().clamp(min=1e-30))[act].max()),
+        "d_ne_rel": float(((g1.ne.double() - g2.ne).abs()
+                           / g2.ne.abs().clamp(min=1e-30))[act].max()),
+        "d_pops_of_total": float(((c1.c.double() - c2.c).abs().amax(1)
+                                  / tot)[act].max())}
+    # conservation through the step; the seed of a fresh cell
+    before = cs64.c.sum(1)
+    fresh = act & (before <= 0)
+    ntot = g64.dens / (tp.atomic_mass * units.AMU_TO_KG)
+    ref = torch.where(fresh, ntot, before)
+    dev = ((c2.c.sum(1) - ref).abs() / ref.clamp(min=1.0))[act]
+    out["populations_sum_rel_err"] = float(dev.max())
+    out["populations_vs_current_ntot"] = float(
+        ((c2.c.sum(1) - ntot).abs() / ntot.clamp(min=1.0))[act].max())
+    print(f"COLRAD parts on phase 9's last state: {out}")
+    check(out["populations_sum_rel_err"] <= 1e-4
+          and out["populations_vs_current_ntot"] <= 1e-4,
+          "COLRAD: the populations of each active cell keep their sum "
+          "through the step and sum to its n_tot")
+    check(bool(torch.isfinite(g1.temp).all()) and bool(
+        torch.isfinite(c1.c).all()), "COLRAD float32 step finite")
+    return out
+
+
+def run_physics(dev_name: str, smi: str):
+    """Phase 9: phase 8's run (run1m's ablation_1m.imd with ABL_TAGS and
+    the 16 vapour atoms) plus VLATTICE (1000 virtual cells, 0.94 um of bulk
+    behind the 1.01 um film), ELECPRESS and COLRAD with its MULTIPHOTON
+    channels (rates ``auto``: the closed-form fits, no state tables on
+    disk), PHYS_STEPS steps from step 285 through ``cli.main`` in float32,
+    launch counters set to 0 just before.  Checks the run, its launches,
+    files (the .ttm with the COLRAD columns and the virtual rows), that the
+    state is finite, and the COLRAD step (colrad_parts).  Prints the
+    ``physics`` line; returns it, the Simulation and the last state."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import __main__ as cli
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.models import ttm as t_ttm
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    with tempfile.TemporaryDirectory(prefix="imd_phys_") as tmp:
+        tmp = Path(tmp)
+        _, film_ids = ablation_start(tmp)
+        (tmp / "phys.imd").write_text(ablation_text(steps=PHYS_STEPS)
+                                      + PHYS_TAGS)
+        timer = CudaPhaseTimer()
+        runs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["-p", str(tmp / "phys.imd")], timer=timer,
+                      on_phase=lambda sim, st: runs.append((sim, st)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        phases = timer.totals_ms()
+        check(rc == 0 and len(runs) == 1, "physics run")
+        sim, state = runs[0]
+        c = sim.counters
+        check(state.step == ABL_START + PHYS_STEPS
+              and c.steps >= PHYS_STEPS, f"physics: {c.steps} steps")
+        launch_checks(launches, c.steps, sim.n_observe, c.rebins, "physics")
+        check(sim.n_filter == 1 and sim.vlat_params.nv == 1000
+              and sim.colrad_phi is not None, "physics: set-up")
+        g, cs, vs = state.ttm_grid, state.cstate, state.vstate
+        finite = all(bool(torch.isfinite(a).all()) for a in (
+            g.temp, g.ne, g.Z, g.U, g.xi, cs.c, cs.p, vs.te, vs.ti,
+            state.scene.pos, state.scene.mom))
+        check(finite, "physics: the finished state is finite")
+        eng = np.loadtxt(tmp / "ablation1m.eng", ndmin=2)
+        check(eng.shape == (1, 6) and bool(np.isfinite(eng).all()),
+              f"physics .eng {eng.shape} finite")
+        ttm = np.loadtxt(tmp / "ablation1m-final.ttm")
+        check(ttm.shape == (256 + 1000, 40)
+              and bool((ttm[256:, 3] == -2).all()),
+              f"physics -final.ttm {ttm.shape}: 17 populations, 5 powers, "
+              "1000 virtual rows")
+        live = state.scene.mask
+        ids = torch.sort(state.scene.id[live]).values.cpu().numpy()
+        check(np.array_equal(ids, film_ids), "physics: FILTER kept the film")
+        act = t_ttm.active_mask(g, sim.ttm_params)
+        hot = int(torch.argmax(torch.where(act, g.temp, -1.0)))
+        epf = t_ttm.electron_pressure_force(g, sim.ttm_params, sim.eos)
+        psum = cs.p.double().sum(0).tolist()
+        parts = colrad_parts(sim, state)
+
+    main_s = sim.timers.get("main")
+    n_atoms = len(film_ids) + len(ABL_VAPOUR)
+    report = {
+        "config": "phase 8's run (run1m's ablation_1m.imd, TMM, NRB, "
+                  "FILTER, implicit solver, 1,024,000 atoms + 16 vapour) "
+                  "with vlatdim 1000, elecpress 1, colrad (fit rates, "
+                  "4 stages x 4 levels + bare), colrad_mpi 1; 10 steps from "
+                  "step 285, float32",
+        "atoms": n_atoms, "steps_run": c.steps,
+        "grid": list(sim.grid.dims), "capacity": sim.grid.capacity,
+        "setup_s": sim.setup_seconds, "setup_parts_s": sim.setup_parts,
+        "main_loop_s": main_s, "wall_s": wall,
+        "ms_per_step": 1e3 * main_s / PHYS_STEPS,
+        "atom_steps_per_s": len(film_ids) * PHYS_STEPS / main_s,
+        "phase_ms_per_step": {k: v / c.steps for k, v in phases.items()},
+        "step_counts": dataclasses.asdict(c),
+        "colrad_tries_per_step": c.colrad_tries / c.steps,
+        "host_reads_per_step": c.host_syncs / c.steps,
+        "hottest_cell": {"index": hot, "T_e_eV": float(g.temp[hot]),
+                         "Z_mean": float(g.Z[hot]),
+                         "n_e_per_m3": float(g.ne[hot])},
+        "vlat_te_first_last_eV": [float(vs.te[0]), float(vs.te[-1])],
+        "power_column_sums": dict(zip(("P_EE", "P_EI", "P_MPI2", "P_MPI3",
+                                       "P_RR"), psum)),
+        "elecpress_max_abs_eV_per_A": float(epf.abs().max()),
+        "parts": parts, "eng": eng.tolist(), "launches": launches,
+        "max_memory_allocated_bytes": peak, "device": dev_name,
+        "nvidia_smi": smi}
+    print(json.dumps({"physics": report}))
+    return report, sim, state
+
+
+def fdtd_text(steps: int) -> str:
+    """run1m's ablation_1m.imd with the FDTD laser in place of the TMM
+    (lambda, I0, laser_t_0 and laser_sigma_t kept), ``steps`` steps from
+    step 0, .eng and a checkpoint at the end."""
+    text = (RUN1M / "ablation_1m.imd").read_text()
+    for a, b in (("\ntmm\n", "\nfdtd\n"), ("maxsteps 10000",
+                                          f"maxsteps {steps}"),
+                 ("eng_int 50", f"eng_int {steps}"),
+                 ("checkpt_int 0", f"checkpt_int {steps}")):
+        check(a in text, f"ablation_1m.imd holds {a!r}")
+        text = text.replace(a, b)
+    return text
+
+
+def fdtd_checks(sim, state) -> dict:
+    """Phase 10's parts on the run's last state: one step_1d and one
+    explicit diffusion substep with its fill_mesh (CUDA events), and
+    FDTD_MAXWELL Maxwell steps from the last fields in float32 against
+    float64 (the E field and the source as a share of their maxima)."""
+    import torch
+
+    from imd_tpu_torch import units
+    from imd_tpu_torch.models import fdtd as t_fdtd
+    from imd_tpu_torch.models import ttm as t_ttm
+
+    tp, g, fs = sim.ttm_params, state.ttm_grid, state.fdtd
+    fp = sim.fdtd_params
+    dt = sim.cfg.timestep
+    t_si = float(state.step * dt * units.IMD_TIME_S)
+    dl = t_fdtd.fit_dl(g, tp)
+    active = g.natoms >= tp.fd_min_atoms
+    ts = torch.tensor(t_si, dtype=g.temp.dtype, device="cuda")
+    tau = dt / FDTD_MAXWELL
+    def maxwell_step():
+        t_fdtd.step_1d(fs, fp, dl, active, ts)
+        t_ttm.fill_mesh(t_ttm.diff_step(g, tp, tau, FDTD_MAXWELL, True), tp,
+                        sim.eos, True)
+
+    out = {"step_1d_ms": time_ms(lambda: t_fdtd.step_1d(fs, fp, dl, active,
+                                                        ts), 20),
+           "diffusion_substep_ms": time_ms(lambda: t_ttm.fill_mesh(
+               t_ttm.diff_step(g, tp, tau, FDTD_MAXWELL, True), tp, sim.eos,
+               True), 20),
+           # a Maxwell step with its diffusion substep: launches, idle share
+           "maxwell_step_profiled": profiled(maxwell_step)}
+    fp64 = t_fdtd.make_fdtd_params(sim.cfg.fdtd, tp, torch.float64, "cuda")
+    g64 = g.replace(**{k: getattr(g, k).double() for k in (
+        "temp", "md_temp", "ne", "Z")})
+    dl64 = t_fdtd.fit_dl(g64, tp)
+    fs64 = fs.replace(**{k: getattr(fs, k).double() for k in (
+        "ezx", "hy", "jzx", "jlzx", "pzx", "source")})
+    a = t_fdtd.run_substeps(fs, fp, dl, active, ts, FDTD_MAXWELL)
+    b = t_fdtd.run_substeps(fs64, fp64, dl64, active, ts.double(),
+                            FDTD_MAXWELL)
+    for name in ("ezx", "source"):
+        ref = getattr(b, name)
+        out[f"d_{name}_of_max"] = float(
+            (getattr(a, name).double() - ref).abs().max()
+            / ref.abs().max().clamp(min=1e-300))
+    out["ezx_max_V_per_m"] = float(b.ezx.abs().max())
+    print(f"FDTD parts on phase 10's last state: {out}")
+    check(bool(torch.isfinite(a.ezx).all()) and bool(
+        torch.isfinite(a.source).all()), "FDTD float32 fields finite")
+    return out
+
+
+def run_fdtd(dev_name: str, smi: str):
+    """Phase 10: run1m's ablation_1m.imd with the FDTD laser in place of
+    the TMM (fdtd_text: 800 nm, 2e17 W/m^2, NRB, the FILTER tags without a
+    cadence), FDTD_STEPS steps from step 0 of start.chkpt (the envelope at
+    1.1% of E0, above the 1e-4 switch) through ``cli.main`` in float32,
+    launch counters set to 0 just before: FDTD_MAXWELL Maxwell steps a step
+    with the explicit diffusion substeps the CFL count asks for, one host
+    read a step for it besides the skin check's; .laser with I_t and refl
+    NaN and a rising absorbed fluence; finite fields.  Prints the ``fdtd``
+    line; returns it, the Simulation and the last state."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import __main__ as cli
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    with tempfile.TemporaryDirectory(prefix="imd_fdtd_") as tmp:
+        tmp = Path(tmp)
+        for name in ("pair.pt", "embed.pt", "rho.pt", "start.chkpt"):
+            (tmp / name).symlink_to(RUN1M / name)
+        (tmp / "fdtd.imd").write_text(fdtd_text(FDTD_STEPS))
+        timer = CudaPhaseTimer()
+        runs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["-p", str(tmp / "fdtd.imd")], timer=timer,
+                      on_phase=lambda sim, st: runs.append((sim, st)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        phases = timer.totals_ms()
+        check(rc == 0 and len(runs) == 1, "FDTD run")
+        sim, state = runs[0]
+        c = sim.counters
+        check(state.step == FDTD_STEPS and c.steps == FDTD_STEPS,
+              f"FDTD: {c.steps} steps")
+        launch_checks(launches, c.steps, sim.n_observe, c.rebins, "FDTD")
+        check(sim.fdtd_params is not None and sim.tmm_params is None
+              and c.maxwell_steps == FDTD_MAXWELL * c.steps
+              and c.host_syncs == 2 * c.steps,
+              f"FDTD: {c.maxwell_steps} Maxwell steps and {c.host_syncs} "
+              f"host reads in {c.steps} steps")
+        g, fs = state.ttm_grid, state.fdtd
+        check(all(bool(torch.isfinite(a).all()) for a in (
+            g.temp, g.U, fs.ezx, fs.hy, fs.source)), "FDTD: finite state")
+        laser = np.loadtxt(tmp / "ablation1m.laser", ndmin=2)
+        check(laser.shape == (1, 5) and bool(np.isnan(laser[:, [2, 4]]).all())
+              and laser[0, 3] > 0.0,
+              f"FDTD .laser {laser.tolist()}: I_t and refl NaN, fluence > 0")
+        eabs_ev = float(g.eabs)
+        src_max = float(fs.source.max())
+        parts = fdtd_checks(sim, state)
+
+    main_s = sim.timers.get("main")
+    report = {
+        "config": "run1m's ablation_1m.imd with fdtd in place of tmm "
+                  "(800 nm, I0 2e17 W/m^2, t0 300 fs, sigma 100 fs; NRB; "
+                  "1,024,000 atoms; TTM 256 cells of 9.418 A), 4 steps from "
+                  "step 0, float32",
+        "atoms": int(state.scene.mask.sum()), "steps_run": c.steps,
+        "setup_s": sim.setup_seconds, "main_loop_s": main_s, "wall_s": wall,
+        "ms_per_step": 1e3 * main_s / c.steps,
+        "atom_steps_per_s": int(state.scene.mask.sum()) * c.steps / main_s,
+        "phase_ms_per_step": {k: v / c.steps for k, v in phases.items()},
+        "step_counts": dataclasses.asdict(c),
+        "maxwell_steps_per_step": c.maxwell_steps / c.steps,
+        "diffusion_substeps_per_step": c.cfl_substeps / c.steps,
+        "absorbed_eV": eabs_ev, "absorbed_fluence_J_m2": float(laser[0, 3]),
+        "source_max": src_max, "parts": parts, "launches": launches,
+        "max_memory_allocated_bytes": peak, "device": dev_name,
+        "nvidia_smi": smi}
+    print(json.dumps({"fdtd": report}))
     return report, sim, state
 
 
@@ -2184,6 +2587,20 @@ def main() -> int:
     del acl, asim, astate
     torch.cuda.empty_cache()
 
+    # ---- 9. VLATTICE, ELECPRESS and COLRAD on phase 8's run ------------
+    phys, psim, pstate = run_physics(dev_name, smi)
+    pcl = scene_to_cl(pstate.scene)
+    check_all(pcl.xi, pcl.alive, psim.eam_run, psim.grid,
+              f"physics end, dims {psim.grid.dims} cap "
+              f"{psim.grid.capacity}")
+    del pcl, psim, pstate
+    torch.cuda.empty_cache()
+
+    # ---- 10. the FDTD laser on run1m's film -----------------------------
+    fdtd, fsim, fstate = run_fdtd(dev_name, smi)
+    del fsim, fstate
+    torch.cuda.empty_cache()
+
     rows = [("eam_rho", "eam_win.cu", "imd_tpu/ops/forces_win.py:306"),
             ("eam_force", "eam_win.cu", "imd_tpu/ops/forces_win.py:411"),
             ("compact", "rebin_compact.cu", "imd_tpu/ops/rebin_cl.py:66"),
@@ -2234,8 +2651,13 @@ def main() -> int:
     for n, src, rep in rows:
         kern = n.removesuffix("_b8")
         b = roofline(*work[kern])
-        extra = ({"launches_ablation": abl["launches"][n]}
-                 if abl["launches"].get(n) and n == kern else {})
+        extra = {}
+        if n == kern:
+            for key, rep_ in (("launches_ablation", abl),
+                              ("launches_physics", phys),
+                              ("launches_fdtd", fdtd)):
+                if rep_["launches"].get(n):
+                    extra[key] = rep_["launches"][n]
         out.append({
             "name": n, "route": "cuda", "source": f"imd_tpu_torch/csrc/{src}",
             "replaces": rep, "launches": launches[n], **extra,

@@ -3,7 +3,8 @@
 The ``from_*`` functions take imd_tpu objects (Box, CellGrid, PotTable,
 PolyPotential, a pair potential or an EAMPotential with any number of type
 columns, Scene with its types, CLState, TTMParams, TTMGrid, NRBState,
-TMMParams) and read
+TMMParams, ColradTables and ColradGridState, FDTDParams and FDTDState,
+VlatParams and VlatState) and read
 every field through ``np.asarray``, so this module never imports jax: it
 works on anything with those attributes.  ``to_numpy`` turns a port
 dataclass back into a dict of NumPy arrays.  The parity tests use both so
@@ -19,9 +20,12 @@ import torch
 
 from imd_tpu_torch.models.potential import (EAMPotential, PolyPotential,
                                             PotTable)
+from imd_tpu_torch.models import colrad as colrad_mod
+from imd_tpu_torch.models import fdtd as fdtd_mod
 from imd_tpu_torch.models import nrb as nrb_mod
 from imd_tpu_torch.models.tmm import TMMParams
-from imd_tpu_torch.models.ttm import TTMGrid, TTMParams
+from imd_tpu_torch.models.ttm import (TTMGrid, TTMParams, VlatParams,
+                                      VlatState)
 from imd_tpu_torch.ops.fused_step import CLState
 from imd_tpu_torch.ops.geometry import Box, CellGrid
 from imd_tpu_torch.scene import Scene
@@ -119,6 +123,48 @@ def tmm_params_from_jax(tp, device="cuda") -> TMMParams:
           if f.init and f.name not in tables}
     return TMMParams(**kw, **{n: _t(getattr(tp, n), device)
                               for n in tables})
+
+
+def colrad_tables_from_jax(tab, device="cuda") -> colrad_mod.ColradTables:
+    """imd_tpu's ColradTables, each table in its dtype, indices as
+    int64."""
+    kw = {}
+    for f in dataclasses.fields(colrad_mod.ColradTables):
+        v = getattr(tab, f.name)
+        if f.name == "n_lev":
+            kw[f.name] = int(v)
+        elif f.name in ("exc_i", "exc_j", "ion_i", "ion_j"):
+            kw[f.name] = _t(np.asarray(v, np.int64), device)
+        else:
+            kw[f.name] = _t(v, device)
+    return colrad_mod.ColradTables(**kw)
+
+
+def colrad_state_from_jax(cs, device="cuda") -> colrad_mod.ColradGridState:
+    return colrad_mod.ColradGridState(
+        c=_t(cs.c, device), p=None if cs.p is None else _t(cs.p, device))
+
+
+def fdtd_params_from_jax(fp, device="cuda") -> fdtd_mod.FDTDParams:
+    """imd_tpu's 1-D FDTDParams: its static fields and its PML profile."""
+    kw = {f.name: getattr(fp, f.name)
+          for f in dataclasses.fields(fdtd_mod.FDTDParams)
+          if f.name != "sigma_y"}
+    return fdtd_mod.FDTDParams(**kw, sigma_y=_t(fp.sigma_y, device))
+
+
+def fdtd_state_from_jax(fs, device="cuda") -> fdtd_mod.FDTDState:
+    return fdtd_mod.FDTDState(**{
+        f.name: _t(getattr(fs, f.name), device)
+        for f in dataclasses.fields(fdtd_mod.FDTDState)})
+
+
+def vlat_from_jax(vp, vs, device="cuda"):
+    """imd_tpu's (VlatParams, VlatState) as the port's."""
+    return (VlatParams(nv=int(vp.nv), dens0=float(vp.dens0),
+                       ci=float(vp.ci), atomic_z=float(vp.atomic_z),
+                       atomic_mass=float(vp.atomic_mass)),
+            VlatState(te=_t(vs.te, device), ti=_t(vs.ti, device)))
 
 
 def to_numpy(obj) -> dict:

@@ -56,6 +56,17 @@ class FEGEos:
         return (ne28 / n_atoms) * (1.5 * kb_ev) * ts * (
             torch.sqrt(1.0 + x * x) - 1.0)
 
+    def pe(self, dens, ne, Te_eV):
+        """Electron pressure [eV/A^3]: the free-electron gas's P_e = (2/3)
+        u_vol (EOS_pe_from_r_te stand-in, imd_ttm.c:2639)."""
+        ts = _tstar_K(ne)
+        x = Te_eV * EV_TO_K / ts
+        ne28 = ne * (1.0 / wr.N28)
+        kb_ev = 1.0 / EV_TO_K
+        u_a3 = ne28 * (1e28 * 1e-30) * (1.5 * kb_ev) * ts * (
+            torch.sqrt(1.0 + x * x) - 1.0)
+        return (2.0 / 3.0) * u_a3
+
     def te_from_u(self, dens, ne, U_eV_atom):
         """Inverse of u_from_te, closed form, returns T_e [eV]."""
         ts = _tstar_K(ne)

@@ -20,8 +20,11 @@ bools.  TTM parameters stay Python floats so the state keeps its dtype.
 
 The laser is the Lambert-Beer source (``laser_cfg``) or the TMM solver
 (``tmm_params``, models/tmm.py), which recomputes the source every
-substep.  COLRAD and VLAT raise NotImplementedError (FDTD has its own
-calc_ttm_fdtd in imd_tpu, not ported).
+substep, or the FDTD Maxwell solver (``calc_ttm_fdtd``, models/fdtd.py).
+COLRAD (models/colrad.py) runs before the diffusion and then owns Z and
+n_e; the virtual lattice (VLATTICE: ``vlat_substep``) continues the grid
+behind its last active cell in every substep; ``electron_pressure_force``
+is ELECPRESS's blast force.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import numpy as np
 import torch
 
 from imd_tpu_torch import units
+from imd_tpu_torch.models import colrad as colrad_mod
+from imd_tpu_torch.models import fdtd as fdtd_mod
 from imd_tpu_torch.models import tmm as tmm_mod
 from imd_tpu_torch.models import widerange as wr
 from imd_tpu_torch.models.eos import FEGEos
@@ -263,15 +268,21 @@ def cell_activation(grid: TTMGrid, params: TTMParams,
 
 
 def fill_mesh(grid: TTMGrid, params: TTMParams, eos: FEGEos,
-              laser_active=False) -> TTMGrid:
-    """Wide-range transport properties per cell (do_FILLMESH, ttm:629)."""
+              laser_active=False, keep_zne: bool = False) -> TTMGrid:
+    """Wide-range transport properties per cell (do_FILLMESH, ttm:629).
+    ``keep_zne``: COLRAD owns Z and n_e, only Ce, kappa and g are
+    refreshed."""
     act = active_mask(grid, params)
     temp = torch.clamp(grid.temp, min=1e-6)
     dens = torch.clamp(grid.dens, min=1e-3)
     md_temp = torch.clamp(grid.md_temp, min=1e-6)
-    Z = torch.clamp(wr.mean_charge(temp, dens, params.atomic_z,
-                                   params.atomic_mass), min=1e-3)
-    ne = Z * dens / (params.atomic_mass * wr.AMU)
+    if keep_zne:
+        Z = torch.clamp(grid.Z, min=1e-3)
+        ne = torch.clamp(grid.ne, min=1.0)
+    else:
+        Z = torch.clamp(wr.mean_charge(temp, dens, params.atomic_z,
+                                       params.atomic_mass), min=1e-3)
+        ne = Z * dens / (params.atomic_mass * wr.AMU)
     if params.const_ce > 0:
         Ce = params.const_ce * temp
     else:
@@ -447,6 +458,99 @@ def diff_step_implicit(grid: TTMGrid, params: TTMParams, tau: float,
     return grid.replace(temp=T2, U=U2, xi=grid.xi + dxi, eabs=eabs)
 
 
+# ---------------------------------------------------------------------------
+# the virtual lattice (VLATTICE, imd_ttm.c:41-59, 1602-1657)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VlatParams:
+    """Virtual-lattice continuum tail: ``nv`` (vlatdim) continuum-only 2T
+    cells behind the sample's rear (+x), the heat sink of the full target
+    depth without its atoms."""
+    nv: int
+    dens0: float         # solid density kg/m^3
+    ci: float            # lattice C_i, eV/(eV A^3)
+    atomic_z: float = 13.0
+    atomic_mass: float = 26.9815
+
+
+@dataclasses.dataclass(eq=False)
+class VlatState:
+    te: torch.Tensor     # [nv] electron temperature (eV)
+    ti: torch.Tensor     # [nv] lattice temperature (eV)
+
+
+def make_vlat(nv: int, dens0: float = 2700.0, t0: float = 0.0253,
+              ci: float | None = None, dtype=torch.float32, device="cuda",
+              atomic_z: float = 13.0, atomic_mass: float = 26.9815):
+    """(VlatParams, VlatState) at ``t0``; ``ci`` defaults to Dulong-Petit
+    3 n k_B at ``dens0``."""
+    n_a3 = dens0 / (atomic_mass * wr.AMU) * 1e-30    # atoms per A^3
+    ci = ci if ci is not None else 3.0 * n_a3
+    p = VlatParams(nv=nv, dens0=dens0, ci=ci, atomic_z=atomic_z,
+                   atomic_mass=atomic_mass)
+    s = VlatState(te=torch.full((nv,), t0, dtype=dtype, device=device),
+                  ti=torch.full((nv,), t0, dtype=dtype, device=device))
+    return p, s
+
+
+def _vlat_props(vs: VlatState, vp: VlatParams, eos: FEGEos):
+    """kappa, g and Ce of the virtual cells at the solid density."""
+    dens = torch.full_like(vs.te, vp.dens0)
+    te = torch.clamp(vs.te, min=1e-6)
+    ti = torch.clamp(vs.ti, min=1e-6)
+    Z = torch.clamp(wr.mean_charge(te, dens, vp.atomic_z, vp.atomic_mass),
+                    min=1e-3)
+    ne = Z * dens / (vp.atomic_mass * wr.AMU)
+    kv = wr.get_kappa(te, ti, ne, Z)
+    gv = wr.get_gamma(te, ti, ne, Z, vp.atomic_mass)
+    cev = torch.clamp(eos.ce(dens, ne, te), min=1e-12)
+    return kv, gv, cev
+
+
+def vlat_substep(grid: TTMGrid, vs: VlatState, params: TTMParams,
+                 vp: VlatParams, eos: FEGEos, tau: float):
+    """One substep of the virtual lattice and its exchange with the last
+    active MD cell (imd_tpu vlat_substep): the chain's T_e diffusion is one
+    backward-Euler tridiagonal solve over nv + 1 cells, the last active
+    cell (a ``max`` over the active mask, no host read) in front; the e-ph
+    exchange of the virtual cells stays explicit.  Returns (grid, vs)."""
+    kv, gv, cev = _vlat_props(vs, vp, eos)
+    inv_dx2 = 1.0 / params.fd_h_x ** 2
+    act = active_mask(grid, params)
+    idx = torch.arange(params.nx, device=grid.temp.device)
+    last = torch.where(act, idx, -1).max()
+    has_edge = last >= 0
+    li = torch.clamp(last, min=0)
+    te_edge = grid.temp[li]
+    k_edge = torch.where(has_edge, grid.fd_k[li], 0.0)
+    ce_edge = torch.clamp(grid.Ce[li], min=1e-12)
+
+    te_c = torch.cat([te_edge[None], vs.te])            # [nv+1]
+    k_c = torch.cat([k_edge[None], kv])
+    ce_c = torch.cat([ce_edge[None], cev])
+    g_c = torch.cat([torch.zeros_like(gv[:1]), gv])     # edge e-ph in
+    ti_c = torch.cat([vs.ti[:1], vs.ti])                # diff_step
+    zero = torch.zeros_like(k_c[:1])
+    k_m = torch.cat([zero, k_c[:-1]])
+    k_p = torch.cat([k_c[1:], zero])
+    w_m = (k_c + k_m) * 0.5 * inv_dx2 / ce_c
+    w_p = (k_c + k_p) * 0.5 * inv_dx2 / ce_c
+    # the edge's grid side is the grid solver's; zero flux at the far end
+    w_m = torch.cat([zero, w_m[1:]])
+    w_p = torch.cat([w_p[:-1], zero])
+    a = -tau * w_m
+    c = -tau * w_p
+    b = 1.0 + tau * (w_m + w_p)
+    rhs = te_c - tau / ce_c * g_c * (te_c - ti_c)
+    te_new = tridiag_solve(a, b, c, rhs)
+    dti = tau / vp.ci * gv * (vs.te - vs.ti)
+    new_temp = torch.where((idx == li) & has_edge, te_new[0], grid.temp)
+    return (grid.replace(temp=new_temp),
+            VlatState(te=torch.where(has_edge, te_new[1:], vs.te),
+                      ti=vs.ti + dti))
+
+
 def lambert_beer_source(grid: TTMGrid, params: TTMParams, laser_cfg, t):
     """Exponential Lambert-Beer volumetric source on the FD grid
     (laser_rescale_ttm mode 4, imd_laser.c:715).  ``t`` is a 0-d tensor
@@ -486,11 +590,15 @@ def calc_ttm(grid: TTMGrid, atoms, params: TTMParams, eos: FEGEos,
     solver ``n_sub`` substeps.  With ``tmm_params`` (models/tmm.py) the TMM
     solver recomputes the source at every substep, at t + i tau in SI
     seconds (tmm_time, imd_ttm.c:117), and its own pulse gate switches the
-    absorbed-energy count and the laser's Coulomb-log branch.  Returns
-    (grid, fdi_new)."""
-    for name, arg in (("colrad", colrad), ("vlat", vlat)):
-        if arg is not None:
-            raise NotImplementedError(f"calc_ttm {name} is not ported")
+    absorbed-energy count and the laser's Coulomb-log branch.
+
+    ``colrad`` = (tables, step_fn, cstate[, phi_fn]) runs the COLRAD
+    kinetics before the diffusion (the do_colrad hook, imd_ttm.c:101-103):
+    ``fill_mesh`` for Ce first, then ``apply_colrad`` owns Z, n_e and T_e,
+    and every later ``fill_mesh`` and the final U keep its Z and n_e;
+    ``phi_fn(t_si)`` gives the MULTIPHOTON photon flux at the step time.
+    ``vlat`` = (VlatParams, VlatState) runs ``vlat_substep`` after every
+    diffusion substep.  Returns (grid, fdi_new[, cstate][, vstate])."""
     if params.solver not in ("explicit", "implicit"):
         raise ValueError(f"unknown TTM solver {params.solver!r}")
     x, mom3, mass, mask = atoms
@@ -498,10 +606,20 @@ def calc_ttm(grid: TTMGrid, atoms, params: TTMParams, eos: FEGEos,
                                num_neighs, fdi_prev, first_step)
     grid = do_adv(grid, params, eos, first_step)
     grid = cell_activation(grid, params, eos)
+    keep_zne = colrad is not None
+    cstate = None
+    if colrad is not None:
+        tab, colrad_step, cstate = colrad[:3]
+        phi_fn = colrad[3] if len(colrad) > 3 else None
+        phi = None if phi_fn is None else phi_fn(t * units.IMD_TIME_S)
+        grid = fill_mesh(grid, params, eos, False)   # Ce for dTe/dt
+        grid, cstate, _ = colrad_mod.apply_colrad(
+            grid, cstate, tab, params, colrad_step, dt, phi,
+            counters=counters)
     laser_active = False
     if laser_cfg is not None and laser_cfg.sigma_e > 0:
         grid, laser_active = lambert_beer_source(grid, params, laser_cfg, t)
-    grid = fill_mesh(grid, params, eos, laser_active)
+    grid = fill_mesh(grid, params, eos, laser_active, keep_zne)
     if params.solver == "implicit":
         substeps = max(params.n_sub, 1)
         step_fn = diff_step_implicit
@@ -516,6 +634,7 @@ def calc_ttm(grid: TTMGrid, atoms, params: TTMParams, eos: FEGEos,
         step_fn = diff_step
     if counters is not None:
         counters.cfl_substeps += substeps
+    vparams, vstate = vlat if vlat is not None else (None, None)
     dt_np = np_dtype(grid.temp.dtype).type
     tau = float(dt_np(dt) / dt_np(substeps))
     on = laser_active
@@ -525,18 +644,100 @@ def calc_ttm(grid: TTMGrid, atoms, params: TTMParams, eos: FEGEos,
             grid, diag = tmm_mod.do_tmm(grid, params, tmm_params, t_si)
             on = diag["laser_active"]
         grid = step_fn(grid, params, tau, substeps, on)
-        grid = fill_mesh(grid, params, eos, on)
+        if vparams is not None:
+            grid, vstate = vlat_substep(grid, vstate, params, vparams, eos,
+                                        tau)
+        grid = fill_mesh(grid, params, eos, on, keep_zne)
     # final U consistent with T via the EOS (imd_ttm.c:131-145)
+    act = active_mask(grid, params)
+    ne = grid.ne if keep_zne else _ne(grid, params)
+    U = torch.where(act, eos.u_from_te(grid.dens, ne, grid.temp), grid.U)
+    out = (grid.replace(U=U), fdi)
+    if colrad is not None:
+        out = out + (cstate,)
+    if vlat is not None:
+        out = out + (vstate,)
+    return out
+
+
+def calc_ttm_fdtd(grid: TTMGrid, fdtd_state, atoms, params: TTMParams,
+                  eos: FEGEos, fdtd_params, num_neighs, fdi_prev, dt: float,
+                  t, t_host: float, first_step: bool = False,
+                  counters=None):
+    """calc_ttm with the FDTD Maxwell solver as the laser source (imd_tpu
+    calc_ttm_fdtd; imd_ttm_3D.c:110-180): ``fdtd_substeps_per_md`` Maxwell
+    steps at the light-CFL timestep (a static count), each followed by
+    n_diff = ceil(CFL substeps / n_fdtd) explicit diffusion substeps.
+    ``t`` is the step time as a 0-d tensor and ``t_host`` the same time as
+    a float: the pulse's on/off switch (imd_tpu's ``lax.cond``) is decided
+    on the host.  One host read a step, for the CFL count.  Returns (grid,
+    fdi_new, fdtd_state)."""
+    x, mom3, mass, mask = atoms
+    grid, fdi = update_fd_flat(grid, params, x, mom3, mass, mask,
+                               num_neighs, fdi_prev, first_step)
+    grid = do_adv(grid, params, eos, first_step)
+    grid = cell_activation(grid, params, eos)
+    grid = fill_mesh(grid, params, eos, True)
+    n_fdtd = fdtd_mod.fdtd_substeps_per_md(fdtd_params, dt)
+    sub_t, clamped_t = cfl_substeps(grid, params, dt)
+    sub_total, clamped = (int(v) for v in torch.stack(
+        [sub_t, clamped_t.to(torch.int32)]).tolist())
+    grid = grid.replace(cfl_overflow=grid.cfl_overflow or bool(clamped))
+    # ceil, not floor: n_fdtd * n_diff must cover the CFL demand
+    n_diff = max((sub_total + n_fdtd - 1) // n_fdtd, 1)
+    dt_np = np_dtype(grid.temp.dtype).type
+    tau = float(dt_np(dt) / dt_np(n_fdtd * n_diff))
+    dl = fdtd_mod.fit_dl(grid, params)
+    active = grid.natoms >= params.fd_min_atoms
+    t_si0 = t * units.IMD_TIME_S
+    laser_active = fdtd_mod.laser_on(fdtd_params,
+                                     t_host * units.IMD_TIME_S)
+    if counters is not None:
+        counters.host_syncs += 1
+        counters.cfl_substeps += n_fdtd * n_diff
+        counters.maxwell_steps += n_fdtd if laser_active else 0
+    for i in range(n_fdtd):
+        if laser_active:
+            fdtd_state = fdtd_mod.step_1d(fdtd_state, fdtd_params, dl,
+                                          active,
+                                          t_si0 + i * fdtd_params.dt_s)
+        grid = grid.replace(source=fdtd_state.source)
+        for _ in range(n_diff):
+            grid = diff_step(grid, params, tau, n_fdtd * n_diff,
+                             laser_active)
+            grid = fill_mesh(grid, params, eos, laser_active)
     act = active_mask(grid, params)
     U = torch.where(act, eos.u_from_te(grid.dens, _ne(grid, params),
                                        grid.temp), grid.U)
-    return grid.replace(U=U), fdi
+    return grid.replace(U=U), fdi, fdtd_state
 
 
-def gather_atom_coupling_flat(grid: TTMGrid, fdi_flat):
+def electron_pressure_force(grid: TTMGrid, params: TTMParams,
+                            eos: FEGEos) -> torch.Tensor:
+    """Per-cell electron blast force [nx] (do_electronic_pressure,
+    imd_ttm.c:554-625): F_x = -dP_e/dx / n_i by central differences, zero
+    at the grid's ends; the integrator subtracts it from the x momentum
+    update."""
+    act = active_mask(grid, params)
+    pe = torch.where(act, eos.pe(torch.clamp(grid.dens, min=1e-3),
+                                 torch.clamp(grid.ne, min=1.0),
+                                 torch.clamp(grid.temp, min=1e-6)), 0.0)
+    pe_p = torch.roll(pe, -1)
+    pe_m = torch.roll(pe, 1)
+    ni = torch.clamp(grid.natoms.to(pe.dtype), min=1.0) / params.fd_vol
+    f = (pe_p - pe_m) / (2.0 * params.fd_h_x) / ni
+    f = torch.where(act, f, 0.0)
+    zero = torch.zeros_like(f[:1])
+    return torch.cat([zero, f[1:-1], zero])
+
+
+def gather_atom_coupling_flat(grid: TTMGrid, fdi_flat, extra=None):
     """Per-atom xi [M] and v_com [M, 3] by indexing the column arrays
-    (move_atoms_ttm, imd_integrate.c:738-748)."""
+    (move_atoms_ttm, imd_integrate.c:738-748); with ``extra`` (a per-cell
+    [nx] column, the ELECPRESS force) also its per-atom values."""
     idx = fdi_flat.to(torch.int64)
+    if extra is not None:
+        return grid.xi[idx], grid.vcom[idx], extra[idx]
     return grid.xi[idx], grid.vcom[idx]
 
 

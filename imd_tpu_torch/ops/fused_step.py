@@ -32,10 +32,11 @@ forces, before the TTM reductions read them, and the boundary atoms keep
 them through the leapfrog; ``tmm_params`` (models/tmm.py) makes calc_ttm
 solve the TMM laser at every diffusion substep.  FILTER runs between
 blocks, not in the step: ``make_filter_apply``.  Together these are the
-reference's flagship build (eam_nve_nbl_nrb_stress_ttm_tmm_filter).  One
-device only: ``mesh``, VLAT, ELECPRESS, COLRAD and FDTD raise
-NotImplementedError unless left at their defaults, and so does ``ntypes``
-> 4 (not fused in imd_tpu either).
+reference's flagship build (eam_nve_nbl_nrb_stress_ttm_tmm_filter).  The
+TTM step also carries the rest of the 1-D TTM physics: VLATTICE,
+ELECPRESS, COLRAD and the FDTD laser (``make_fused_ttm_step``).  One device
+only: ``mesh`` raises NotImplementedError, and so does ``ntypes`` > 4 (not
+fused in imd_tpu either).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from imd_tpu_torch.kernels import MAX_NT
 from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, check_mt_tables,
                                           eam_kernels_win_split,
                                           eam_kernels_win_split_mt)
+from imd_tpu_torch.ops.geometry import np_dtype
 from imd_tpu_torch.ops.rebin_cl import make_rebin_cl
 from imd_tpu_torch.phases import StepCounters, no_timer
 from imd_tpu_torch.scene import Scene, rebin_with
@@ -237,18 +239,32 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
                         counters: StepCounters | None = None):
     """TTM-coupled fused step (the north-star configuration).
 
-    Returns (step, cl0): step(cl, tgrid, fdi, k) -> (cl', tgrid', fdi',
-    k+1) with ``fdi`` the flat [cap*NC] int32 stored FD index (-1 = no
-    history) and ``k`` the host step number.  EAM forces with neighbour
-    counts (the ``engine``'s kernels, or K6/K7 for ``ntypes`` 2..4), the
-    NRB momenta with ``nrb_state``, calc_ttm on flat component views of
-    the cells-last state (the TMM laser with ``tmm_params``), xi-coupled
-    leapfrog p += dt (F + xi m (v - vcom)) where boundary atoms keep their
-    set momenta, skin check, and on trigger the migration rebin carrying
-    fdi with its atom."""
-    _only_ported(mesh=mesh is not None, vlat=vlat is not None,
-                 elecpress=bool(elecpress), colrad=colrad is not None,
-                 fdtd_params=fdtd_params is not None)
+    Returns (step, cl0): step(cl, tgrid, fdi[, cs][, vs], k) -> (cl',
+    tgrid', fdi'[, cs'][, vs'], k+1) with ``fdi`` the flat [cap*NC] int32
+    stored FD index (-1 = no history) and ``k`` the host step number.  EAM
+    forces with neighbour counts (the ``engine``'s kernels, or K6/K7 for
+    ``ntypes`` 2..4), the NRB momenta with ``nrb_state``, calc_ttm on flat
+    component views of the cells-last state (the TMM laser with
+    ``tmm_params``), xi-coupled leapfrog p += dt (F + xi m (v - vcom))
+    where boundary atoms keep their set momenta, skin check, and on
+    trigger the migration rebin carrying fdi with its atom.
+
+    ``colrad`` = (tables, step_fn[, phi_fn]) runs COLRAD inside calc_ttm
+    with its state ``cs``; ``vlat`` = (VlatParams, VlatState0) the virtual
+    lattice with its state ``vs``; ``elecpress`` subtracts the electron
+    blast force from the x momentum update, gathered per atom beside xi;
+    ``fdtd_params`` switches to calc_ttm_fdtd, the FDTD field state taking
+    the ``cs`` slot (imd_tpu's carry order, ops/fused_step.py:398-412).
+    FDTD with TMM, COLRAD or VLAT raises ValueError, as imd_tpu's driver
+    rule."""
+    _only_ported(mesh=mesh is not None)
+    if fdtd_params is not None:
+        for name, arg in (("tmm_params", tmm_params), ("colrad", colrad),
+                          ("vlat", vlat)):
+            if arg is not None:
+                raise ValueError(
+                    f"FDTD is exclusive with TMM, COLRAD and VLAT (the "
+                    f"driver rule): {name} is set")
     grid = template.grid
     forces = _make_forces(eam_run, template, ntypes, timer, engine)
     dtype = template.pos.dtype
@@ -256,8 +272,9 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
     skin2 = (0.5 * grid.skin) ** 2
     rebin = make_rebin_cl(grid)
     counters = StepCounters() if counters is None else counters
+    dt_np = np_dtype(dtype).type
 
-    def step(cl: CLState, tgrid, fdi, k: int):
+    def core(cl: CLState, tgrid, fdi, cs, vs, k: int):
         F, nn = forces(cl, True)
         # the NRB momenta are set before the TTM reductions read them
         # (nrb_forces ends calc_forces, imd_forces_nbl.c:1019-1048)
@@ -265,16 +282,38 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
         x = cl.xi[:, 0, :].reshape(-1)
         mom3 = tuple(mom_set[:, c, :].reshape(-1) for c in range(3))
         massf = cl.mass.reshape(-1)
+        atoms = (x, mom3, massf, cl.alive.reshape(-1))
         with timer("calc_ttm"):
             t = torch.full((), float(k), dtype=dtype, device=x.device) * dt
-            tgrid, fdi = ttm_mod.calc_ttm(
-                tgrid, (x, mom3, massf, cl.alive.reshape(-1)), tp, eos,
-                nn.reshape(-1), fdi, dt, t, laser_cfg=laser_cfg,
-                first_step=(k == 0), tmm_params=tmm_params,
-                counters=counters)
+            if fdtd_params is not None:
+                tgrid, fdi, cs = ttm_mod.calc_ttm_fdtd(
+                    tgrid, cs, atoms, tp, eos, fdtd_params, nn.reshape(-1),
+                    fdi, dt, t, float(dt_np(k) * dt_np(dt)),
+                    first_step=(k == 0), counters=counters)
+            else:
+                out = ttm_mod.calc_ttm(
+                    tgrid, atoms, tp, eos, nn.reshape(-1), fdi, dt, t,
+                    laser_cfg=laser_cfg, first_step=(k == 0),
+                    tmm_params=tmm_params,
+                    colrad=(None if colrad is None
+                            else (colrad[0], colrad[1], cs)
+                            + tuple(colrad[2:3])),
+                    vlat=None if vlat is None else (vlat[0], vs),
+                    counters=counters)
+                tgrid, fdi = out[:2]
+                rest = list(out[2:])
+                cs = rest.pop(0) if colrad is not None else cs
+                vs = rest.pop(0) if vlat is not None else vs
         with timer("leapfrog"):
             fdidx = ttm_mod.fd_index_from_x(x, tp)
-            xi_a, vcom_a = ttm_mod.gather_atom_coupling_flat(tgrid, fdidx)
+            if elecpress:
+                epf = ttm_mod.electron_pressure_force(tgrid, tp, eos)
+                xi_a, vcom_a, ep_a = ttm_mod.gather_atom_coupling_flat(
+                    tgrid, fdidx, extra=epf)
+            else:
+                xi_a, vcom_a = ttm_mod.gather_atom_coupling_flat(tgrid,
+                                                                 fdidx)
+                ep_a = None
             af = cl.alive.to(dtype)
             shape2 = cl.mass.shape
             mom_new = []
@@ -282,7 +321,12 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
                 momc = mom_set[:, c, :]
                 extra = (xi_a * (mom3[c] - massf * vcom_a[:, c])
                          ).reshape(shape2)
-                upd = momc + dt * (F[:, c, :] + extra)
+                Fc = F[:, c, :]
+                if c == 0 and ep_a is not None:
+                    # the electron blast pressure acts along x only
+                    # (imd_integrate.c:741-743)
+                    Fc = Fc - ep_a.reshape(shape2)
+                upd = momc + dt * (Fc + extra)
                 if bnd is not None:
                     upd = torch.where(bnd, momc, upd)
                 mom_new.append(upd * af)
@@ -296,7 +340,18 @@ def make_fused_ttm_step(template: Scene, eam_run, timestep: float, tp, eos,
                 fdi = fdi2.reshape(-1)
             counters.rebins += 1
         counters.steps += 1
-        return cl, tgrid, fdi, k + 1
+        return cl, tgrid, fdi, cs, vs, k + 1
+
+    has_cs = colrad is not None or fdtd_params is not None
+    has_vs = vlat is not None
+
+    def step(cl: CLState, tgrid, fdi, *rest):
+        rest = list(rest)
+        cs = rest.pop(0) if has_cs else None
+        vs = rest.pop(0) if has_vs else None
+        cl, tgrid, fdi, cs, vs, k = core(cl, tgrid, fdi, cs, vs, rest[0])
+        return (cl, tgrid, fdi) + ((cs,) if has_cs else ()) \
+            + ((vs,) if has_vs else ()) + (k,)
 
     return step, scene_to_cl(template)
 

@@ -22,6 +22,8 @@ class StepCounters:
     host_syncs: int = 0     # device->host reads that stall the stream
     rebins: int = 0         # skin-triggered migration rebins
     cfl_substeps: int = 0   # TTM diffusion substeps summed over steps
+    colrad_tries: int = 0   # COLRAD batched backward-Euler tries
+    maxwell_steps: int = 0  # FDTD Maxwell steps (the laser on)
 
 
 def no_timer(name: str):

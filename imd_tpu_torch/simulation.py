@@ -17,7 +17,11 @@ the ``.laser`` log at their intervals.  The flagship physics rides the
 fused loop as in imd_tpu: the TMM laser (``tmm``, models/tmm.py) inside
 calc_ttm, the NRB rear boundary (``nrb_*``, models/nrb.py) inside the step,
 FILTER (``filter_*``, models/filter.py) between blocks every
-``filter_int`` steps, and ``ttm_solver implicit``.  A rebin that overflows
+``filter_int`` steps, and ``ttm_solver implicit``; and the rest of the 1-D
+TTM physics: the FDTD laser (``fdtd``, models/fdtd.py), COLRAD
+(``colrad``, ``colrad_mpi``; models/colrad.py), the virtual lattice
+(``vlatdim``) and the electron blast force (``elecpress``), whose states
+ride the step's carry and the ``.ttm`` files.  A rebin that overflows
 the cell capacity grows the slot axis and retries the block from the
 pre-block state; past ``REGRID_CAPACITY`` slots the grid is first
 re-derived for the current density (``_regrid_scene``).
@@ -48,6 +52,7 @@ import dataclasses
 import math
 import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -59,6 +64,8 @@ from imd_tpu_torch.io.chkpt import ChkptData, read_chkpt, read_itr, \
     write_chkpt, write_itr
 from imd_tpu_torch.io.eng import EngWriter
 from imd_tpu_torch.io.ttm_io import write_ttm
+from imd_tpu_torch.models import colrad as colrad_mod
+from imd_tpu_torch.models import fdtd as fdtd_mod
 from imd_tpu_torch.models import nrb as nrb_mod
 from imd_tpu_torch.models import ttm as ttm_mod
 from imd_tpu_torch.models.eos import FEGEos
@@ -146,10 +153,7 @@ UNPORTED = (
      "morse_*, buck_*)",
      lambda c: _any_set(c, _PAIR_TAGS) and (c.tmm.enabled or c.nrb.enabled
                                             or c.filter.enabled), "A9b"),
-    ("vlatdim", lambda c: c.ttm.enabled and c.ttm.vlatdim > 0, "A7"),
-    ("elecpress", lambda c: c.ttm.enabled and c.ttm.elecpress, "A7"),
-    ("colrad", lambda c: c.ttm.enabled and c.colrad, "A7"),
-    ("fdtd", lambda c: c.fdtd.enabled, "A7"),
+    # with fdtd (the 2-D FDTD), colrad or vlatdim on it
     ("3-D TTM (ttmdimy / ttmdimz > 1)",
      lambda c: c.ttm.enabled and (c.ttm.fd_ny > 1 or c.ttm.fd_nz > 1),
      "A7"),
@@ -191,6 +195,9 @@ class SimState:
     presstens: np.ndarray         # [6] xx yy zz yz zx xy
     rho: Optional[torch.Tensor]   # [gx,gy,gz,cap] host density (EAM)
     ttm_grid: Optional[object] = None
+    cstate: Optional[object] = None   # ColradGridState
+    fdtd: Optional[object] = None     # FDTDState
+    vstate: Optional[object] = None   # VlatState
 
 
 @dataclasses.dataclass(eq=False)
@@ -220,6 +227,25 @@ def _clamp_block(b: int, cur: int, intervals) -> int:
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _photon_flux(pulse, hnu_ev: float):
+    """phi(t_si) [1/m^2/s]: the MULTIPHOTON photon flux I(t) / h nu of the
+    wave solver's pulse tags at ``t_si`` (a tensor, seconds), with the
+    TMM's second pulse (simulation.py:826-846; tmm.intensity's envelope,
+    imd_tmm.c:197-198)."""
+    inv_hnu_j = 1.0 / (hnu_ev * 1.602176634e-19)
+    i0, t0 = pulse.I0, pulse.t0_s
+    s2 = max(pulse.sigma_t_s, 1e-300) ** 2
+    t1 = getattr(pulse, "t1_s", 0.0)
+    s21 = getattr(pulse, "sigma_t1_s", 0.0) ** 2
+
+    def phi(t_si):
+        it = i0 * torch.exp(-(t_si - t0) ** 2 / s2)
+        if s21 > 0.0:
+            it = it + i0 * torch.exp(-(t_si - t1) ** 2 / s21)
+        return it * inv_hnu_j
+    return phi
 
 
 class Simulation:
@@ -441,9 +467,13 @@ class Simulation:
             self.pair_run = to_fastpoly(self.pair, vcap=50.0)
 
     def _select_integrator(self):
+        """The TTM and its physics (simulation.py:700-873): the laser (TMM
+        or FDTD, not both), COLRAD, the virtual lattice."""
         cfg = self.cfg
         self.ensemble = cfg.ensemble
         self.ttm_params = self.eos = self.tmm_params = None
+        self.fdtd_params = self.colrad_tab = self.colrad_step = None
+        self.colrad_phi = self.vlat_params = self.vlat_state0 = None
         if self.ensemble != "ttm":
             return
         cfg.ttm.enabled = True
@@ -454,6 +484,76 @@ class Simulation:
             self.tmm_params = make_tmm_params(cfg.tmm, self.dtype,
                                               self.device)
             self.setup_parts["tmm_params"] = time.perf_counter() - t0
+        if cfg.fdtd.enabled:
+            if self.tmm_params is not None:
+                raise ValueError("enable either TMM or FDTD, not both")
+            self.fdtd_params = fdtd_mod.make_fdtd_params(
+                cfg.fdtd, self.ttm_params, self.dtype, self.device)
+        if cfg.colrad:
+            t0 = time.perf_counter()
+            self._select_colrad()
+            self.setup_parts["colrad_tables"] = time.perf_counter() - t0
+        if cfg.ttm.vlatdim > 0:
+            # the solid density from the atomic mass at the fcc-Al volume;
+            # the virtual lattice starts at starttemp, else at the
+            # reference's room temperature (0.0264 eV, imd_ttm.c:1038)
+            dens0 = (cfg.ttm.atomic_mass * 1.66054e-27
+                     / (4.05e-10 ** 3 / 4.0))
+            self.vlat_params, self.vlat_state0 = ttm_mod.make_vlat(
+                cfg.ttm.vlatdim, dens0=dens0,
+                t0=cfg.starttemp if cfg.starttemp > 0 else 0.0264,
+                dtype=self.dtype, device=self.device,
+                atomic_z=cfg.ttm.atomic_z, atomic_mass=cfg.ttm.atomic_mass)
+
+    def _select_colrad(self):
+        """COLRAD's rate tables, step and MULTIPHOTON flux
+        (simulation.py:767-846).  The rates: the reference's Mott /
+        Fermi-Dirac integrals over its state tables where ``Al0_states.txt``
+        is on disk (``colrad_rates auto`` or ``ref``), else the closed-form
+        fits.  The tables are float32 whatever the run's dtype, as
+        imd_tpu builds them."""
+        cfg = self.cfg
+        mode = cfg.colrad_rates
+        states_dir = None
+        if mode in ("auto", "ref"):
+            cands = ([cfg.colrad_states_dir] if cfg.colrad_states_dir
+                     else [self.workdir, os.path.join(self.workdir, "..")])
+            for d in cands:
+                if d and os.path.exists(os.path.join(d, "Al0_states.txt")):
+                    states_dir = d
+                    break
+            if mode == "ref" and states_dir is None:
+                raise FileNotFoundError(
+                    "colrad_rates ref: no Al0_states.txt under "
+                    f"{cands} (colrad_read_states, imd_colrad.c:523)")
+        if states_dir is not None:
+            print(f"# COLRAD rates: reference Mott/Fermi-Dirac integrals "
+                  f"over state tables in {states_dir}", flush=True)
+            self.colrad_tab = colrad_mod.build_tables(
+                colrad_mod.read_states(states_dir), rates="ref",
+                dtype=torch.float32, device=self.device)
+        else:
+            print("# COLRAD rates: van-Regemorter/Lotz closed-form fits (no "
+                  "reference state tables found)", flush=True)
+            self.colrad_tab = colrad_mod.build_tables(
+                colrad_mod.aluminium_states(cfg.colrad_maxz,
+                                            cfg.colrad_nlev),
+                dtype=torch.float32, device=self.device)
+        mpi_const = None
+        if cfg.colrad_mpi:
+            pulse = (cfg.tmm if cfg.tmm.enabled
+                     else cfg.fdtd if cfg.fdtd.enabled else None)
+            if pulse is None or pulse.I0 <= 0:
+                warnings.warn("colrad_mpi needs a wave-solver laser "
+                              "(lambda/I0/laser_t_0/laser_sigma_t); "
+                              "multiphoton channels disabled")
+            else:
+                mpi_const = colrad_mod.mpi_constants(pulse.lambda_m)
+                self.colrad_phi = _photon_flux(pulse, mpi_const[0])
+        # evolve_te: the step's third output is written into grid.temp
+        # (imd_colrad.c:277)
+        self.colrad_step = colrad_mod.make_colrad_step(
+            self.colrad_tab, evolve_te=True, mpi_const=mpi_const)
 
     def _init_nrb(self):
         """The NRB tables (simulation.py:901-916): read from
@@ -497,6 +597,33 @@ class Simulation:
                 grid.temp, self.cfg.ttm.init_t_el), init_done=True)
         return grid
 
+    def _initial_aux(self) -> tuple:
+        """The start of the step's extra carry, in imd_tpu's order: the
+        COLRAD or the FDTD state, then the virtual lattice's."""
+        aux = ()
+        if self.colrad_tab is not None:
+            aux += (colrad_mod.init_grid_state(
+                self.colrad_tab, self.ttm_params.nx, self.dtype,
+                self.device),)
+        elif self.fdtd_params is not None:
+            aux += (fdtd_mod.make_state(self.fdtd_params, self.dtype,
+                                        self.device),)
+        if self.vlat_params is not None:
+            aux += (self.vlat_state0,)
+        return aux
+
+    def _aux_states(self, carry) -> dict:
+        """The extra carry's states by SimState field."""
+        aux = list(carry[3:-1])
+        out = {}
+        if self.colrad_tab is not None:
+            out["cstate"] = aux.pop(0)
+        elif self.fdtd_params is not None:
+            out["fdtd"] = aux.pop(0)
+        if self.vlat_params is not None:
+            out["vstate"] = aux.pop(0)
+        return out
+
     def _steps_to_run(self, steps: Optional[int]) -> int:
         """maxsteps is the ABSOLUTE last step (imd_main_3d.c:151); an
         explicit ``steps`` is a relative count."""
@@ -519,24 +646,33 @@ class Simulation:
         f = self.cfg.filter
         return f.interval if f.enabled and f.interval > 0 else 0
 
-    def _build(self, template: Scene, ttm_grid, step0: int):
+    def _build(self, template: Scene, ttm_grid, step0: int,
+               aux: tuple = ()):
         """The fused step, its carry and the FILTER application (or None)
-        for ``template`` (rebuilt after a capacity growth or a re-grid).
-        The stored FD index restarts at -1, as imd_tpu's does when the
-        slot layout changes."""
+        for ``template`` (rebuilt after a capacity growth or a re-grid),
+        the TTM step's carry (cl, grid, fdi, *aux, k) with ``aux`` the
+        COLRAD or FDTD state and the virtual lattice's.  The stored FD
+        index restarts at -1, as imd_tpu's does when the slot layout
+        changes."""
         cfg = self.cfg
         filt = (make_filter_apply(template, cfg.filter, self.cutoff)
                 if self._filter_int() else None)
         if self.ensemble == "ttm":
             laser = cfg.laser if cfg.laser.sigma_e > 0 else None
+            colrad = (None if self.colrad_tab is None else
+                      (self.colrad_tab, self.colrad_step, self.colrad_phi))
+            vlat = (None if self.vlat_params is None
+                    else (self.vlat_params, self.vlat_state0))
             step, cl = make_fused_ttm_step(
                 template, self.eam_run, cfg.timestep, self.ttm_params,
                 self.eos, laser, nrb_state=self.nrb_state,
-                tmm_params=self.tmm_params, ntypes=cfg.ntypes,
+                tmm_params=self.tmm_params, vlat=vlat,
+                elecpress=bool(cfg.ttm.elecpress), colrad=colrad,
+                fdtd_params=self.fdtd_params, ntypes=cfg.ntypes,
                 timer=self.timer, counters=self.counters)
             fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
                              device=self.device)
-            return step, (cl, ttm_grid, fdi, step0), filt
+            return step, (cl, ttm_grid, fdi, *aux, step0), filt
         step, cl = make_fused_step(template, self.eam_run, cfg.timestep,
                                    nrb_state=self.nrb_state,
                                    ntypes=cfg.ntypes, timer=self.timer,
@@ -556,12 +692,16 @@ class Simulation:
             _sync(self.device)
         return carry
 
-    def observe(self, cl, template: Scene, gstep: int, ttm_grid):
-        """Observables of a cells-last state with the B4 kernels (K4, K5;
-        K8, K9 with ntypes > 1, simulation.py:2592): per-atom epot, host
-        density, forces, virial and pressure tensor, plus the kinetic
-        energy; sums in float64."""
+    def observe(self, carry, template: Scene, gstep: int):
+        """Observables of the carry's cells-last state with the B4 kernels
+        (K4, K5; K8, K9 with ntypes > 1, simulation.py:2592): per-atom
+        epot, host density, forces, virial and pressure tensor, plus the
+        kinetic energy; sums in float64.  The state keeps the carry's TTM
+        grid and the states of its physics."""
         self.n_observe += 1
+        cl = carry[0]
+        ttm = ({"ttm_grid": carry[1], **self._aux_states(carry)}
+               if len(carry) > 1 else {})
         nt = self.cfg.ntypes
         with self.timers.section("observe"):
             if nt > 1:
@@ -582,7 +722,7 @@ class Simulation:
         return SimState(scene=scene, step=gstep, epot_total=vals[0],
                         ekin=vals[1], virial=vals[2],
                         presstens=np.asarray(vals[3:]),
-                        rho=_from_cl(rho, dims), ttm_grid=ttm_grid)
+                        rho=_from_cl(rho, dims), **ttm)
 
     def run_fused(self, steps: Optional[int] = None) -> SimState:
         """The fused hot loop with periodic I/O (simulation.py:2463)."""
@@ -598,7 +738,7 @@ class Simulation:
         template = self.scene
         step, carry, filt = self._build(
             template, self._initial_ttm_grid() if ttm_on else None,
-            self.step_count)
+            self.step_count, self._initial_aux() if ttm_on else ())
         self.timers.start("total")
         nactive = integrate.count_active_dof(self.scene)
         if cfg.eng_int > 0 and self.eng is None:
@@ -625,7 +765,8 @@ class Simulation:
                     sc_prev, grow_tries, regrid_at, done)
                 step, carry, filt = self._build(
                     template, prev_carry[1] if ttm_on else None,
-                    self.step_count + done)
+                    self.step_count + done,
+                    tuple(prev_carry[3:-1]) if ttm_on else ())
                 continue
             self.block_seconds.append((b, time.perf_counter() - t0))
             done += b
@@ -633,8 +774,7 @@ class Simulation:
             control = self._control_files()
             if (any(_iv_due(gstep, i) for i in io_intervals)
                     or any(control) or done >= steps):
-                state = self.observe(carry[0], template, gstep,
-                                     carry[1] if ttm_on else None)
+                state = self.observe(carry, template, gstep)
                 with self.timers.section("io"):
                     if _iv_due(gstep, cfg.eng_int):
                         self._write_eng(state, nactive)
@@ -644,9 +784,12 @@ class Simulation:
                         self.write_checkpoint(state,
                                               gstep // cfg.checkpt_int)
                     if ttm_on and _iv_due(gstep, cfg.ttm_int):
+                        cs = state.cstate
                         write_ttm(self._path(
                             f"{cfg.outfiles}.{gstep // cfg.ttm_int}.ttm"),
-                            state.ttm_grid)
+                            state.ttm_grid,
+                            colrad_c=None if cs is None else cs.c,
+                            colrad_p=None if cs is None else cs.p)
                     if self._obey_control(state, gstep, *control):
                         break
             if filt is not None and done < steps \
@@ -655,8 +798,7 @@ class Simulation:
                 # (blocks end on multiples of filter_int)
                 carry = self._apply_filter(filt, carry)
         if state is None:
-            state = self.observe(carry[0], template, self.step_count + done,
-                                 carry[1] if ttm_on else None)
+            state = self.observe(carry, template, self.step_count + done)
         self.scene = state.scene
         self.step_count = state.step
         self.timers.stop("total")
@@ -946,7 +1088,8 @@ class Simulation:
 
     def write_checkpoint(self, state: SimState, fzhlr: int):
         """<outfiles>.<fzhlr:05d>.{chkpt,itr[,ttm][,nrb]}; fzhlr -1 names
-        the end-of-run "-final" set (imd_io_3d.c:995).  The TTM restart
+        the end-of-run "-final" set (imd_io_3d.c:995).  The .ttm carries
+        the COLRAD columns and the virtual lattice's rows.  The TTM restart
         sidecar (.ttmaux.npz) is not written: TTM restarts are not
         ported."""
         cfg = self.cfg
@@ -958,6 +1101,10 @@ class Simulation:
         write_itr(base + ".itr", checkpoint=fzhlr, startstep=state.step + 1,
                   box_x=d.box_x, box_y=d.box_y, box_z=d.box_z)
         if cfg.ttm.enabled and state.ttm_grid is not None:
-            write_ttm(base + ".ttm", state.ttm_grid)
+            cs = state.cstate
+            write_ttm(base + ".ttm", state.ttm_grid,
+                      colrad_c=None if cs is None else cs.c,
+                      colrad_p=None if cs is None else cs.p,
+                      vlat=state.vstate)
         if self.nrb_state is not None:
             nrb_mod.write_nrb(base + ".nrb", self.nrb_state)

@@ -420,7 +420,11 @@ UNPORTED = {
             "A9b"),
     "filter": ("lj_epsilon 0.35\nlj_sigma 2.62\nfilter_int 4\n"
                "filter_min_x 1.0\n", "A9b"),
-    "vlattice": ("ensemble ttm\nvlatdim 4\n", "A7"),
+    # the virtual lattice, COLRAD and the (2-D) FDTD on the 3-D TTM
+    "vlattice": ("ensemble ttm\nvlatdim 4\nttmdimy 2\n", "A7"),
+    "colrad_3d": ("ensemble ttm\ncolrad\nttmdimz 2\n", "A7"),
+    "fdtd_3d": ("ensemble ttm\nfdtd\nlambda 800e-9\nI0 1e16\n"
+                "laser_t_0 50e-15\nlaser_sigma_t 20e-15\nttmdimy 2\n", "A7"),
     "ttm_3d": ("ensemble ttm\nttmdimy 2\n", "A7"),
     "implicit": ("ensemble ttm\nttm_solver implicit\nlj_epsilon 0.35\n"
                  "lj_sigma 2.62\n", "A9b"),

@@ -306,18 +306,25 @@ def test_flagship_fused_md_step_matches_jax(setup):
 
 
 def test_unported_arguments_raise(setup):
-    """mesh, VLAT, ELECPRESS, COLRAD and FDTD raise (TMM and NRB run)."""
+    """mesh raises (one device only); FDTD together with TMM, COLRAD or
+    VLAT raises ValueError, as imd_tpu's driver rule; calc_ttm refuses an
+    unknown solver.  VLAT, ELECPRESS, COLRAD and FDTD themselves run
+    (tests/test_torch_ttm_physics_driver.py)."""
     _, _, tscene, team = setup
     with pytest.raises(NotImplementedError, match="mesh"):
         t_fused.make_fused_step(tscene, team, DT, mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        t_fused.make_fused_ttm_step(tscene, team, DT, None, FEGEos(), LASER,
+                                    mesh=object())
     with pytest.raises(ValueError, match="engine"):
         t_fused.make_fused_step(tscene, team, DT, engine="pallas2")
-    for name, arg in (("vlat", object()), ("elecpress", True),
-                      ("colrad", object()), ("fdtd_params", object())):
-        with pytest.raises(NotImplementedError, match=name):
+    for name in ("tmm_params", "colrad", "vlat"):
+        with pytest.raises(ValueError, match=f"exclusive.*{name}"):
             t_fused.make_fused_ttm_step(tscene, team, DT, None, FEGEos(),
-                                        LASER, **{name: arg})
-    for name in ("colrad", "vlat"):
-        with pytest.raises(NotImplementedError, match=name):
-            t_ttm.calc_ttm(None, None, None, None, None, None, DT, None,
-                           **{name: object()})
+                                        LASER, fdtd_params=object(),
+                                        **{name: object()})
+    tp = t_ttm.TTMParams(nx=4, fd_h_x=1.0, fd_vol=1.0, neigh_vol=1.0,
+                         atomic_mass=26.9815, atomic_z=13.0, fd_min_atoms=1,
+                         solver="crank")
+    with pytest.raises(ValueError, match="solver"):
+        t_ttm.calc_ttm(None, None, tp, None, None, None, DT, None)
