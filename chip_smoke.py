@@ -148,10 +148,31 @@ positive absorbed fluence, finite fields; on the last state step_1d and
 one diffusion substep are timed and 649 Maxwell steps in float32 are held
 against float64 (E field and source as shares of their maxima).
 
+Phase 11 resumes them: phase 9 writes its checkpoint set at step 290 and
+phase 10 at step 2 (.chkpt, .itr, .nrb, .ttm, .ttmaux.npz; only the
+cadence changes), and ``cli.main([... "-r", "1"])`` in float32 runs each
+file again with ``do_maxwell 0`` from its set to its phase's last step,
+launch counters set to 0 just before: the restored grid fields, virtual
+lattice, FDTD fields and per-atom FD index (by id) must equal what the
+straight run wrote, bit for bit, the COLRAD populations within the .ttm's
+%e digits; K1/K2 once a step, K4/K5 once per observe(), K3 three per
+rebin, nothing else; a finite state; T_e, T_i, the populations, the FDTD
+fields and the positions against the straight run's at the same step
+within RESTART_TOL (its comment justifies each).  The resumed phase 9 run
+also writes .dist, .ppm, .wf, .stress and .nb at step 295 (the writers'
+times printed); the per-atom stress on the degree-12 fit sums to K5's
+pressure tensor of that step (STRESS_TOL of its largest component).  Then the
+tabulated EOS: EOS_cve_from_r_te.txt and EOS_ee_from_r_tesqrt.txt written
+from the port's FEGEos in the reference's nn format, 2 steps of phase 8's
+file with ``eos_dir`` on them (launches as phase 8's, a finite state),
+te_from_u(u_from_te(T)) within the bisection's resolution, one calc_ttm
+with the tables against the FEG function they sample within 10 x their
+interpolation error, and one calc_ttm with each EOS timed.
+
 Prints one JSON line each for the four main paths (one and two species,
 "split", "ab"), the bench configuration, the two driver runs, the LJ
-driver run, the ablation run and phases 9 and 10 (atom-steps/s, ms per
-step, CUDA-event
+driver run, the ablation run, phases 9 and 10, the two restarts and the
+EOS run (atom-steps/s, ms per step, CUDA-event
 phase times with calc_ttm and nrb, calc_ttm by part and its CUDA kernels
 under torch.profiler, ms per FILTER application, the set-up seconds of
 init_nrb and the TMM tables, peak memory, launches), one
@@ -163,7 +184,7 @@ are unspecified; ptxas' registers, spill bytes and static shared memory;
 for the full-stencil rows and K10-K12 the launch tile and its dynamic
 shared memory at the table's shapes; K12's row also its launches by
 capacity and its time at cap 24 and on phase 7's last state; the rows
-of K1-K5 also their launches in phases 8, 9 and 10; B8's
+of K1-K5 also their launches in phases 8, 9, 10 and 11; B8's
 rows carry K4/K5's times), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
@@ -827,6 +848,45 @@ PHYS_STEPS = 10     # phase 9: steps 285 -> 295, across the pulse's peak
 PHYS_TAGS = "vlatdim 1000\nelecpress 1\ncolrad\ncolrad_mpi 1\n"
 FDTD_STEPS = 4      # phase 10: steps 0 -> 4 of start.chkpt
 FDTD_MAXWELL = 649  # Maxwell steps per MD step on run1m's 9.418 A cells
+# phase 11: phase 9 writes its checkpoint set (number 1) at step 290 and
+# phase 10 at step 2; each is resumed to its phase's last step
+PHYS_RESTART_AT = 290
+FDTD_RESTART_AT = 2
+# the interval outputs of the resumed phase 9 run, due once, at step 295
+# (nb_rcut between the first and second neighbour shells of fcc Al)
+OUTPUT_TAGS = ("dist_int 5\ndist_dim 256 1 1\ndist_Ekin_flag 1\n"
+               "dist_Epot_flag 1\ndist_mdtemp_flag 1\npic_int 5\n"
+               "force_int 5\npress_int 5\nnb_checkpt_int 5\nnb_rcut 3.5\n"
+               "nb_cut_lower 11\nnb_cut_upper 13\n")
+# the restarted runs against the straight ones at the same step, float32.
+# The restart itself is exact in float64 on the CPU (tests/
+# test_torch_ttm_restart.py: 1e-9, COLRAD's populations through the .ttm's
+# %e 1e-6); what is left is float32 rounding in another order: the restart
+# bins the atoms afresh, so every cell sum adds its terms in another
+# order (~1e-6 relative), and rounding then decides for some pairs within
+# an ulp of the cutoff on which side they fall, where the degree-12 fit
+# jumps by up to ~5 eV/A (ROADMAP C2): such an atom's velocity changes by
+# up to 5 x 0.1 / 27 = 0.018 A per time unit in one step, half a thermal
+# velocity at 0.03 eV, and its cell's T_i by ~m v dv / (1.5 N) (0.6% of
+# T_i for one flip in a 160-atom cell of a 16,016-atom film when this
+# script runs on the CPU, 3.8e-3 measured there).  COLRAD's float32 Newton amplifies a rounding
+# difference in its inputs: one COLRAD step in float32 against float64 on
+# the same grid reached 3.5e-3 of T_e and 1.9e-3 of the populations in
+# cells that converge slowly (PERF.md, phase 9's COLRAD step), so the
+# restart's reordered sums may move a COLRAD cell by as much.  Positions:
+# 2e-3 A, 8 ulp of x at 2400 A (7.3e-4 measured on the CPU).  T_e and T_i
+# 1e-2 relative on the straight run's active cells, the populations 1e-2
+# of their cell's nuclei, the FDTD fields 1e-3 of their largest value.
+# The per-atom stress (a float64 oracle on the fit) summed against K5's
+# float32 pressure tensor: the same pairs, but K5's Horners round each
+# value to ~2^-24 of the fit's coefficient mass (sum |c_k| ~ 1,510 for
+# these EAM fits, ROADMAP C2), ~1e-4 of a term; 1.0e-4 of the largest
+# component measured on the CPU (the 16,016-atom film) and on the H100
+# (run1m's film), as large relative to the summed |terms| (no
+# cancellation), so 1e-3
+STRESS_TOL = 1e-3
+RESTART_TOL = {"pos_A": 2e-3, "temp_rel": 1e-2, "md_temp_rel": 1e-2,
+               "pops_of_total": 1e-2, "fields_of_max": 1e-3}
 
 
 def launch_checks(launches, steps, n_obs, rebins, what):
@@ -943,16 +1003,77 @@ def colrad_parts(sim, state) -> dict:
     return out
 
 
-def run_physics(dev_name: str, smi: str):
+def physics_text() -> str:
+    """Phase 9's file: phase 8's with PHYS_TAGS, PHYS_STEPS steps and its
+    checkpoint set at step PHYS_RESTART_AT."""
+    text = ablation_text(steps=PHYS_STEPS)
+    check("checkpt_int 20" in text, "phase 8's file holds checkpt_int 20")
+    return text.replace("checkpt_int 20",
+                        f"checkpt_int {PHYS_RESTART_AT}") + PHYS_TAGS
+
+
+def fdi_by_id(scene, fdi):
+    """(ids, FD index) of the live slots, sorted by id, on the device."""
+    import torch
+    m = scene.mask
+    ids, order = torch.sort(scene.id[m].long())
+    return ids, fdi[m][order].to(torch.int32)
+
+
+class stash_checkpoints:
+    """While active, keep a copy of the TTM state of each numbered
+    checkpoint set the driver writes (``store[n]``: the grid's restart
+    fields, the populations, the virtual lattice, the FDTD fields and the
+    FD index with the ids), for phase 11 to hold the restored state to."""
+
+    FIELDS = ("temp", "md_temp", "U", "natoms", "natoms_old", "dens",
+              "source", "xi")
+
+    def __init__(self, store: dict):
+        self.store = store
+
+    def __enter__(self):
+        from imd_tpu_torch import simulation as t_sim
+        self.cls, self.orig = t_sim.Simulation, \
+            t_sim.Simulation.write_checkpoint
+        store, orig, fields = self.store, self.orig, self.FIELDS
+
+        def write_checkpoint(sim, state, fzhlr):
+            if fzhlr > 0 and state.ttm_grid is not None:
+                g = state.ttm_grid
+                snap = {f"grid_{k}": getattr(g, k).clone() for k in fields}
+                if state.cstate is not None:
+                    snap["c"] = state.cstate.c.clone()
+                if state.vstate is not None:
+                    snap["vlat_te"] = state.vstate.te.clone()
+                    snap["vlat_ti"] = state.vstate.ti.clone()
+                if state.fdtd is not None:
+                    for f in dataclasses.fields(state.fdtd):
+                        snap[f"fdtd_{f.name}"] = getattr(state.fdtd,
+                                                         f.name).clone()
+                snap["fdi"] = fdi_by_id(state.scene, state.fdi)
+                store[fzhlr] = snap
+            return orig(sim, state, fzhlr)
+        self.cls.write_checkpoint = write_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.write_checkpoint = self.orig
+
+
+def run_physics(dev_name: str, smi: str, tmp: Path, stash: dict):
     """Phase 9: phase 8's run (run1m's ablation_1m.imd with ABL_TAGS and
     the 16 vapour atoms) plus VLATTICE (1000 virtual cells, 0.94 um of bulk
     behind the 1.01 um film), ELECPRESS and COLRAD with its MULTIPHOTON
     channels (rates ``auto``: the closed-form fits, no state tables on
-    disk), PHYS_STEPS steps from step 285 through ``cli.main`` in float32,
-    launch counters set to 0 just before.  Checks the run, its launches,
+    disk), PHYS_STEPS steps from step 285 through ``cli.main`` in float32
+    in ``tmp``, launch counters set to 0 just before; its checkpoint set
+    at step PHYS_RESTART_AT (written before that step's FILTER) goes to
+    ``stash`` for phase 11.  Checks the run, its launches,
     files (the .ttm with the COLRAD columns and the virtual rows), that the
     state is finite, and the COLRAD step (colrad_parts).  Prints the
-    ``physics`` line; returns it, the Simulation and the last state."""
+    ``physics`` line; returns it, the Simulation, the last state and the
+    film's ids."""
     import numpy as np
     import torch
 
@@ -961,53 +1082,54 @@ def run_physics(dev_name: str, smi: str):
     from imd_tpu_torch.models import ttm as t_ttm
     from imd_tpu_torch.phases import CudaPhaseTimer
 
-    with tempfile.TemporaryDirectory(prefix="imd_phys_") as tmp:
-        tmp = Path(tmp)
-        _, film_ids = ablation_start(tmp)
-        (tmp / "phys.imd").write_text(ablation_text(steps=PHYS_STEPS)
-                                      + PHYS_TAGS)
-        timer = CudaPhaseTimer()
-        runs = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
+    _, film_ids = ablation_start(tmp)
+    (tmp / "phys.imd").write_text(physics_text())
+    timer = CudaPhaseTimer()
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with stash_checkpoints(stash):
         rc = cli.main(["-p", str(tmp / "phys.imd")], timer=timer,
                       on_phase=lambda sim, st: runs.append((sim, st)))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        phases = timer.totals_ms()
-        check(rc == 0 and len(runs) == 1, "physics run")
-        sim, state = runs[0]
-        c = sim.counters
-        check(state.step == ABL_START + PHYS_STEPS
-              and c.steps >= PHYS_STEPS, f"physics: {c.steps} steps")
-        launch_checks(launches, c.steps, sim.n_observe, c.rebins, "physics")
-        check(sim.n_filter == 1 and sim.vlat_params.nv == 1000
-              and sim.colrad_phi is not None, "physics: set-up")
-        g, cs, vs = state.ttm_grid, state.cstate, state.vstate
-        finite = all(bool(torch.isfinite(a).all()) for a in (
-            g.temp, g.ne, g.Z, g.U, g.xi, cs.c, cs.p, vs.te, vs.ti,
-            state.scene.pos, state.scene.mom))
-        check(finite, "physics: the finished state is finite")
-        eng = np.loadtxt(tmp / "ablation1m.eng", ndmin=2)
-        check(eng.shape == (1, 6) and bool(np.isfinite(eng).all()),
-              f"physics .eng {eng.shape} finite")
-        ttm = np.loadtxt(tmp / "ablation1m-final.ttm")
-        check(ttm.shape == (256 + 1000, 40)
-              and bool((ttm[256:, 3] == -2).all()),
-              f"physics -final.ttm {ttm.shape}: 17 populations, 5 powers, "
-              "1000 virtual rows")
-        live = state.scene.mask
-        ids = torch.sort(state.scene.id[live]).values.cpu().numpy()
-        check(np.array_equal(ids, film_ids), "physics: FILTER kept the film")
-        act = t_ttm.active_mask(g, sim.ttm_params)
-        hot = int(torch.argmax(torch.where(act, g.temp, -1.0)))
-        epf = t_ttm.electron_pressure_force(g, sim.ttm_params, sim.eos)
-        psum = cs.p.double().sum(0).tolist()
-        parts = colrad_parts(sim, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    phases = timer.totals_ms()
+    check(rc == 0 and len(runs) == 1, "physics run")
+    sim, state = runs[0]
+    c = sim.counters
+    check(state.step == ABL_START + PHYS_STEPS
+          and c.steps >= PHYS_STEPS, f"physics: {c.steps} steps")
+    launch_checks(launches, c.steps, sim.n_observe, c.rebins, "physics")
+    check(sim.n_filter == 1 and sim.vlat_params.nv == 1000
+          and sim.colrad_phi is not None, "physics: set-up")
+    check(sorted(stash) == [1] and (tmp / "ablation1m.00001.ttmaux.npz")
+          .exists(), f"physics: the checkpoint set at step "
+          f"{PHYS_RESTART_AT}")
+    g, cs, vs = state.ttm_grid, state.cstate, state.vstate
+    finite = all(bool(torch.isfinite(a).all()) for a in (
+        g.temp, g.ne, g.Z, g.U, g.xi, cs.c, cs.p, vs.te, vs.ti,
+        state.scene.pos, state.scene.mom))
+    check(finite, "physics: the finished state is finite")
+    eng = np.loadtxt(tmp / "ablation1m.eng", ndmin=2)
+    check(eng.shape == (1, 6) and bool(np.isfinite(eng).all()),
+          f"physics .eng {eng.shape} finite")
+    ttm = np.loadtxt(tmp / "ablation1m-final.ttm")
+    check(ttm.shape == (256 + 1000, 40)
+          and bool((ttm[256:, 3] == -2).all()),
+          f"physics -final.ttm {ttm.shape}: 17 populations, 5 powers, "
+          "1000 virtual rows")
+    live = state.scene.mask
+    ids = torch.sort(state.scene.id[live]).values.cpu().numpy()
+    check(np.array_equal(ids, film_ids), "physics: FILTER kept the film")
+    act = t_ttm.active_mask(g, sim.ttm_params)
+    hot = int(torch.argmax(torch.where(act, g.temp, -1.0)))
+    epf = t_ttm.electron_pressure_force(g, sim.ttm_params, sim.eos)
+    psum = cs.p.double().sum(0).tolist()
+    parts = colrad_parts(sim, state)
 
     main_s = sim.timers.get("main")
     n_atoms = len(film_ids) + len(ABL_VAPOUR)
@@ -1038,18 +1160,19 @@ def run_physics(dev_name: str, smi: str):
         "max_memory_allocated_bytes": peak, "device": dev_name,
         "nvidia_smi": smi}
     print(json.dumps({"physics": report}))
-    return report, sim, state
+    return report, sim, state, film_ids
 
 
-def fdtd_text(steps: int) -> str:
+def fdtd_text(steps: int, checkpt: int = 0) -> str:
     """run1m's ablation_1m.imd with the FDTD laser in place of the TMM
     (lambda, I0, laser_t_0 and laser_sigma_t kept), ``steps`` steps from
-    step 0, .eng and a checkpoint at the end."""
+    step 0, .eng at the end and a checkpoint set every ``checkpt`` steps
+    (at the end by default)."""
     text = (RUN1M / "ablation_1m.imd").read_text()
     for a, b in (("\ntmm\n", "\nfdtd\n"), ("maxsteps 10000",
                                           f"maxsteps {steps}"),
                  ("eng_int 50", f"eng_int {steps}"),
-                 ("checkpt_int 0", f"checkpt_int {steps}")):
+                 ("checkpt_int 0", f"checkpt_int {checkpt or steps}")):
         check(a in text, f"ablation_1m.imd holds {a!r}")
         text = text.replace(a, b)
     return text
@@ -1107,7 +1230,7 @@ def fdtd_checks(sim, state) -> dict:
     return out
 
 
-def run_fdtd(dev_name: str, smi: str):
+def run_fdtd(dev_name: str, smi: str, tmp: Path, stash: dict):
     """Phase 10: run1m's ablation_1m.imd with the FDTD laser in place of
     the TMM (fdtd_text: 800 nm, 2e17 W/m^2, NRB, the FILTER tags without a
     cadence), FDTD_STEPS steps from step 0 of start.chkpt (the envelope at
@@ -1116,7 +1239,9 @@ def run_fdtd(dev_name: str, smi: str):
     with the explicit diffusion substeps the CFL count asks for, one host
     read a step for it besides the skin check's; .laser with I_t and refl
     NaN and a rising absorbed fluence; finite fields.  Prints the ``fdtd``
-    line; returns it, the Simulation and the last state."""
+    line; returns it, the Simulation and the last state.  Runs in ``tmp``
+    with a checkpoint set every FDTD_RESTART_AT steps, the first of which
+    goes to ``stash`` for phase 11."""
     import numpy as np
     import torch
 
@@ -1124,45 +1249,45 @@ def run_fdtd(dev_name: str, smi: str):
     from imd_tpu_torch import kernels
     from imd_tpu_torch.phases import CudaPhaseTimer
 
-    with tempfile.TemporaryDirectory(prefix="imd_fdtd_") as tmp:
-        tmp = Path(tmp)
-        for name in ("pair.pt", "embed.pt", "rho.pt", "start.chkpt"):
-            (tmp / name).symlink_to(RUN1M / name)
-        (tmp / "fdtd.imd").write_text(fdtd_text(FDTD_STEPS))
-        timer = CudaPhaseTimer()
-        runs = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
+    for name in ("pair.pt", "embed.pt", "rho.pt", "start.chkpt"):
+        (tmp / name).symlink_to(RUN1M / name)
+    (tmp / "fdtd.imd").write_text(fdtd_text(FDTD_STEPS,
+                                            FDTD_RESTART_AT))
+    timer = CudaPhaseTimer()
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with stash_checkpoints(stash):
         rc = cli.main(["-p", str(tmp / "fdtd.imd")], timer=timer,
                       on_phase=lambda sim, st: runs.append((sim, st)))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        phases = timer.totals_ms()
-        check(rc == 0 and len(runs) == 1, "FDTD run")
-        sim, state = runs[0]
-        c = sim.counters
-        check(state.step == FDTD_STEPS and c.steps == FDTD_STEPS,
-              f"FDTD: {c.steps} steps")
-        launch_checks(launches, c.steps, sim.n_observe, c.rebins, "FDTD")
-        check(sim.fdtd_params is not None and sim.tmm_params is None
-              and c.maxwell_steps == FDTD_MAXWELL * c.steps
-              and c.host_syncs == 2 * c.steps,
-              f"FDTD: {c.maxwell_steps} Maxwell steps and {c.host_syncs} "
-              f"host reads in {c.steps} steps")
-        g, fs = state.ttm_grid, state.fdtd
-        check(all(bool(torch.isfinite(a).all()) for a in (
-            g.temp, g.U, fs.ezx, fs.hy, fs.source)), "FDTD: finite state")
-        laser = np.loadtxt(tmp / "ablation1m.laser", ndmin=2)
-        check(laser.shape == (1, 5) and bool(np.isnan(laser[:, [2, 4]]).all())
-              and laser[0, 3] > 0.0,
-              f"FDTD .laser {laser.tolist()}: I_t and refl NaN, fluence > 0")
-        eabs_ev = float(g.eabs)
-        src_max = float(fs.source.max())
-        parts = fdtd_checks(sim, state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    phases = timer.totals_ms()
+    check(rc == 0 and len(runs) == 1, "FDTD run")
+    sim, state = runs[0]
+    c = sim.counters
+    check(state.step == FDTD_STEPS and c.steps == FDTD_STEPS,
+          f"FDTD: {c.steps} steps")
+    launch_checks(launches, c.steps, sim.n_observe, c.rebins, "FDTD")
+    check(sim.fdtd_params is not None and sim.tmm_params is None
+          and c.maxwell_steps == FDTD_MAXWELL * c.steps
+          and c.host_syncs == 2 * c.steps,
+          f"FDTD: {c.maxwell_steps} Maxwell steps and {c.host_syncs} "
+          f"host reads in {c.steps} steps")
+    g, fs = state.ttm_grid, state.fdtd
+    check(all(bool(torch.isfinite(a).all()) for a in (
+        g.temp, g.U, fs.ezx, fs.hy, fs.source)), "FDTD: finite state")
+    laser = np.loadtxt(tmp / "ablation1m.laser", ndmin=2)
+    check(laser.shape == (1, 5) and bool(np.isnan(laser[:, [2, 4]]).all())
+          and laser[0, 3] > 0.0,
+          f"FDTD .laser {laser.tolist()}: I_t and refl NaN, fluence > 0")
+    eabs_ev = float(g.eabs)
+    src_max = float(fs.source.max())
+    parts = fdtd_checks(sim, state)
 
     main_s = sim.timers.get("main")
     report = {
@@ -1184,6 +1309,457 @@ def run_fdtd(dev_name: str, smi: str):
         "nvidia_smi": smi}
     print(json.dumps({"fdtd": report}))
     return report, sim, state
+
+
+def drive(path: Path, label: str, *extra):
+    """``cli.main(["-p", path, *extra])`` in float32, launch counters set
+    to 0 just before and checked after (launch_checks): returns the
+    Simulation, its last state, the launches, the CUDA-event phase times
+    and the wall seconds."""
+    import torch
+
+    from imd_tpu_torch import __main__ as cli
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    timer = CudaPhaseTimer()
+    runs = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-p", str(path), *extra], timer=timer,
+                  on_phase=lambda sim, st: runs.append((sim, st)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(rc == 0 and len(runs) == 1, f"{label}: the run")
+    sim, state = runs[0]
+    launch_checks(launches, sim.counters.steps, sim.n_observe,
+                  sim.counters.rebins, label)
+    return sim, state, launches, timer.totals_ms(), wall
+
+
+def resume(tmp: Path, text: str, label: str):
+    """``drive`` with ``-r 1`` on ``text``, written beside the set."""
+    (tmp / "resume.imd").write_text(text)
+    return drive(tmp / "resume.imd", label, "-r", "1")
+
+
+def restored_vs_written(sim, tmp: Path, snap: dict) -> dict:
+    """The TTM state a resumed Simulation restores from set 1 (again,
+    ``_initial_ttm_state``) against the sidecar's arrays and the state
+    the straight run wrote: the grid fields and the virtual lattice with
+    the same bits, the FD index by id equal, the COLRAD populations within
+    the .ttm's %e digits (5e-7 relative, 1e-12 of the cell's nuclei)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    grid, aux, fdi = sim._initial_ttm_state()
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t0}
+    side = np.load(tmp / "ablation1m.00001.ttmaux.npz")
+    same = {}
+    for k in stash_checkpoints.FIELDS:
+        v = getattr(grid, k).cpu().numpy()
+        same[k] = bool(np.array_equal(v, side[f"grid_{k}"])
+                       and np.array_equal(
+                           v, snap[f"grid_{k}"].cpu().numpy()))
+    states = sim._aux_states((None,) * 3 + aux + (None,))
+    if "vstate" in states:
+        for k in ("te", "ti"):
+            v = getattr(states["vstate"], k).cpu().numpy()
+            same[f"vlat_{k}"] = bool(np.array_equal(v, side[f"vlat_{k}"])
+                                     and np.array_equal(
+                                         v, snap[f"vlat_{k}"].cpu().numpy()))
+    if "fdtd" in states:
+        for f in dataclasses.fields(states["fdtd"]):
+            v = getattr(states["fdtd"], f.name).cpu().numpy()
+            same[f"fdtd_{f.name}"] = bool(np.array_equal(
+                v, snap[f"fdtd_{f.name}"].cpu().numpy()))
+    ids, vals = fdi_by_id(sim.scene, fdi)
+    sids, svals = snap["fdi"]
+    same["fdi_by_id"] = bool(torch.equal(ids, sids)) and bool(
+        torch.equal(vals, svals))
+    out["bits_equal"] = same
+    if "cstate" in states:
+        c, w = states["cstate"].c.double(), snap["c"].double()
+        tot = w.sum(1, keepdim=True).clamp(min=1.0)
+        dev = (c - w).abs() - 5e-7 * w.abs()
+        out["pops_beyond_%e_of_total"] = float((dev / tot).max())
+        same["pops_within_%e"] = out["pops_beyond_%e_of_total"] <= 1e-12
+    print(f"restored vs written: {out}")
+    check(all(same.values()), f"the restored state: {same}")
+    return out
+
+
+def deviations(straight, resumed, ids, tp) -> dict:
+    """The resumed state against the straight one at the same step: T_e
+    and T_i relative on the straight run's active cells, the populations
+    as a share of their cell's nuclei, and the positions of the atoms
+    ``ids`` (A, periodic axes by minimum image)."""
+    import torch
+
+    from imd_tpu_torch.models import ttm as t_ttm
+
+    ga, gb = straight.ttm_grid, resumed.ttm_grid
+    act = t_ttm.active_mask(ga, tp)
+    out = {"active_cells": int(act.sum())}
+    for k in ("temp", "md_temp"):
+        a, b = getattr(ga, k).double()[act], getattr(gb, k).double()[act]
+        rel = (b - a).abs() / a.abs()
+        out[f"{k}_rel"] = float(rel.max())
+        # the worst cell: its atoms, and its centre-of-mass kinetic energy
+        # per atom beside T (T_i subtracts it from the atoms' sum)
+        i = int(torch.nonzero(act).flatten()[int(torch.argmax(rel))])
+        out[f"{k}_worst"] = {
+            "cell": i, "natoms": int(ga.natoms[i]),
+            "straight": float(getattr(ga, k)[i]),
+            "resumed": float(getattr(gb, k)[i]),
+            "com_ke_eV": float(0.5 * tp.atomic_mass
+                               * (ga.vcom[i].double() ** 2).sum())}
+    if straight.cstate is not None:
+        a = straight.cstate.c.double()[act]
+        b = resumed.cstate.c.double()[act]
+        out["pops_of_total"] = float(((b - a).abs() / a.sum(1, keepdim=True)
+                                      .clamp(min=1.0)).max())
+
+    def pos_of(scene):
+        m = scene.mask.reshape(-1)
+        sid = scene.id.reshape(-1)[m].long()
+        p = scene.pos.reshape(-1, 3)[m].double()
+        keep = torch.isin(sid, ids)
+        sid, p = sid[keep], p[keep]
+        return p[torch.argsort(sid)], torch.sort(sid).values
+    pa, ia = pos_of(straight.scene)
+    pb, ib = pos_of(resumed.scene)
+    check(torch.equal(ia, ib), "the resumed run holds the straight run's "
+          "atoms")
+    d = pb - pa
+    h = torch.as_tensor(straight.scene.grid.box.h, dtype=d.dtype,
+                        device=d.device)
+    for ax in (1, 2):
+        L = float(h[ax, ax])
+        d[:, ax] -= torch.round(d[:, ax] / L) * L
+    out["pos_max_A"] = float(d.abs().max())
+    return out
+
+
+def run_restart_physics(dev_name: str, smi: str, tmp: Path, straight,
+                        snap: dict, film_ids):
+    """Phase 11 on phase 9's set: ``-r 1`` on phase 9's file with
+    ``do_maxwell 0`` (the velocities come from the checkpoint; imd_tpu's
+    ``do_maxwell 1`` draws new ones on a restart too) and the interval
+    outputs (OUTPUT_TAGS), step 290 -> 295.  Checks the restored state
+    (restored_vs_written), the launches, a finite state, the deviations
+    from phase 9's step 295 (RESTART_TOL; the 16 vapour atoms that phase
+    9's FILTER deleted at step 290, after writing the set, stay: the
+    restart resumes after that step), the outputs written once with their
+    writers' times, and the per-atom stress: on the degree-12 fit that K5
+    evaluates, its sum is K5's pressure tensor of step 295 (STRESS_TOL of
+    its largest component); the .stress file's, from the tables as imd_tpu
+    writes it, is printed beside it (ROADMAP C2)."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch.ops.forces import compute_eam_forces
+
+    text = physics_text().replace("do_maxwell 1", "do_maxwell 0") \
+        + OUTPUT_TAGS
+    sim, state, launches, phases, wall = resume(tmp, text,
+                                                "physics restart")
+    c = sim.counters
+    check(state.step == ABL_START + PHYS_STEPS
+          and c.steps == ABL_START + PHYS_STEPS - PHYS_RESTART_AT,
+          f"physics restart: {c.steps} steps to {state.step}")
+    g, cs, vs = state.ttm_grid, state.cstate, state.vstate
+    check(all(bool(torch.isfinite(a).all()) for a in (
+        g.temp, g.U, cs.c, vs.te, state.scene.pos, state.scene.mom)),
+        "physics restart: finite state")
+    restored = restored_vs_written(sim, tmp, snap)
+    dev = deviations(straight, state, torch.as_tensor(
+        film_ids, device="cuda").long(), sim.ttm_params)
+    print(f"physics restart vs phase 9 at step {state.step}: {dev} "
+          f"(limits {RESTART_TOL})")
+    check(dev["pos_max_A"] <= RESTART_TOL["pos_A"]
+          and dev["temp_rel"] <= RESTART_TOL["temp_rel"]
+          and dev["md_temp_rel"] <= RESTART_TOL["md_temp_rel"]
+          and dev["pops_of_total"] <= RESTART_TOL["pops_of_total"],
+          "physics restart: the deviations from the straight run")
+    n = state.step // 5
+    files = {ext: tmp / f"ablation1m.{n}.{ext}"
+             for ext in ("dist", "ppm", "wf", "stress", "nb")}
+    check(all(f.exists() for f in files.values()),
+          f"physics restart: the outputs {sorted(files)}")
+    writers_s = {k: sim.timers.get(f"write_{k}")
+                 for k in ("dist", "ppm", "wf", "stress", "nb")}
+    sizes = {k: f.stat().st_size for k, f in files.items()}
+    body = files["stress"].read_bytes().split(b"#E\n", 1)[1]
+    stress = np.fromstring(body.decode(), sep=" ").reshape(-1, 12)[:, 6:]
+    n_atoms = int(state.scene.mask.sum())
+    check(stress.shape == (n_atoms, 6), "physics restart: .stress rows")
+    # the oracle in float64 on the run's float32 state: what is left is
+    # K5's own float32 rounding
+    scene = state.scene
+    scene64 = scene.replace(pos=scene.pos.double(), mom=scene.mom.double(),
+                            force=scene.force.double(),
+                            epot=scene.epot.double(),
+                            mass=scene.mass.double())
+    t0 = time.perf_counter()
+    fit = compute_eam_forces(scene64, sim.eam_run.at_host_precision(),
+                             per_atom_stress=True)
+    pt = fit.presstens_atom
+    pt_sum = pt.sum(dim=(0, 1, 2, 3)).cpu().numpy()
+    terms = pt.abs().sum(dim=(0, 1, 2, 3)).cpu().numpy()
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    del fit, pt, scene64
+    torch.cuda.empty_cache()
+    k5 = np.asarray(state.presstens)
+    scale = float(np.abs(k5).max())
+    stress_vs_k5 = float(np.abs(pt_sum - k5).max() / scale)
+    stress_vs_k5_terms = float((np.abs(pt_sum - k5) / terms).max())
+    file_vs_k5 = float(np.abs(stress.sum(0) - k5).max() / scale)
+    print(f"per-atom stress summed over {n_atoms} atoms against K5's "
+          f"presstens at step {state.step}: the fit {stress_vs_k5:.3e} of "
+          f"its largest component ({stress_vs_k5_terms:.3e} of the summed "
+          f"|terms|), the .stress file (tables) {file_vs_k5:.3e}")
+    check(stress_vs_k5 <= STRESS_TOL, "the per-atom stress on the fit "
+          "sums to K5's pressure tensor")
+    main_s = sim.timers.get("main")
+    report = {
+        "config": "phase 9's set at step 290 resumed to 295 (-r 1, "
+                  "do_maxwell 0) with .dist/.ppm/.wf/.stress/.nb at 295, "
+                  "float32",
+        "atoms": n_atoms, "steps_run": c.steps,
+        "load_s": sim.setup_seconds + sim.setup_parts["ttm_restore"],
+        "setup_s": sim.setup_seconds, "setup_parts_s": sim.setup_parts,
+        "main_loop_s": main_s, "ms_per_step": 1e3 * main_s / c.steps,
+        "wall_s": wall,
+        "phase_ms_per_step": {k: v / c.steps for k, v in phases.items()},
+        "restored": restored, "deviations": dev, "limits": RESTART_TOL,
+        "writers_s": writers_s, "output_bytes": sizes,
+        "stress_oracle_s": oracle_s, "stress_fit_vs_k5": stress_vs_k5,
+        "stress_fit_vs_k5_of_terms": stress_vs_k5_terms,
+        "stress_file_tables_vs_k5": file_vs_k5, "launches": launches,
+        "device": dev_name, "nvidia_smi": smi}
+    print(json.dumps({"restart_physics": report}))
+    return report
+
+
+def run_restart_fdtd(dev_name: str, smi: str, tmp: Path, straight,
+                     snap: dict):
+    """Phase 11 on phase 10's set: ``-r 1`` on phase 10's file with
+    ``do_maxwell 0``, step 2 -> 4; the restored state, the launches, a
+    finite state, and the FDTD fields and T_e against phase 10's step 4
+    (RESTART_TOL)."""
+    import torch
+
+    text = fdtd_text(FDTD_STEPS, FDTD_RESTART_AT).replace("do_maxwell 1",
+                                                          "do_maxwell 0")
+    sim, state, launches, phases, wall = resume(tmp, text, "FDTD restart")
+    c = sim.counters
+    check(state.step == FDTD_STEPS
+          and c.steps == FDTD_STEPS - FDTD_RESTART_AT,
+          f"FDTD restart: {c.steps} steps to {state.step}")
+    fs = state.fdtd
+    check(all(bool(torch.isfinite(a).all()) for a in (
+        state.ttm_grid.temp, fs.ezx, fs.hy, fs.source, state.scene.pos)),
+        "FDTD restart: finite state")
+    restored = restored_vs_written(sim, tmp, snap)
+    ids = straight.scene.id[straight.scene.mask].long()
+    dev = deviations(straight, state, ids, sim.ttm_params)
+    for k in ("ezx", "hy", "jzx", "source"):
+        a, b = getattr(straight.fdtd, k).double(), getattr(fs, k).double()
+        dev[f"{k}_of_max"] = float((b - a).abs().max()
+                                   / a.abs().max().clamp(min=1e-300))
+    print(f"FDTD restart vs phase 10 at step {state.step}: {dev} (limits "
+          f"{RESTART_TOL})")
+    check(dev["pos_max_A"] <= RESTART_TOL["pos_A"]
+          and dev["temp_rel"] <= RESTART_TOL["temp_rel"]
+          and dev["md_temp_rel"] <= RESTART_TOL["md_temp_rel"]
+          and all(dev[f"{k}_of_max"] <= RESTART_TOL["fields_of_max"]
+                  for k in ("ezx", "hy", "jzx", "source")),
+          "FDTD restart: the deviations from the straight run")
+    main_s = sim.timers.get("main")
+    report = {
+        "config": "phase 10's set at step 2 resumed to 4 (-r 1, "
+                  "do_maxwell 0), float32",
+        "atoms": int(state.scene.mask.sum()), "steps_run": c.steps,
+        "load_s": sim.setup_seconds + sim.setup_parts["ttm_restore"],
+        "setup_s": sim.setup_seconds, "main_loop_s": main_s,
+        "ms_per_step": 1e3 * main_s / c.steps, "wall_s": wall,
+        "phase_ms_per_step": {k: v / c.steps for k, v in phases.items()},
+        "restored": restored, "deviations": dev, "limits": RESTART_TOL,
+        "launches": launches, "device": dev_name, "nvidia_smi": smi}
+    print(json.dumps({"restart_fdtd": report}))
+    return report
+
+
+EOS_STEPS = 2       # phase 8's file with eos_dir, steps 285 -> 287
+# make_ttm_fixture's grids (tools/refbuild/make_ttm_fixture.py:59-71)
+EOS_RHO = (300.0, 8000.0, 150)
+EOS_TE_K = ((20.0, 2000.0, 250), (2100.0, 5.8e4, 300))
+
+
+def write_eos_tables(out: Path, atomic_mass: float, z: float = 3.0):
+    """EOS_cve_from_r_te.txt and EOS_ee_from_r_tesqrt.txt in the
+    reference's nn format (the header's bounds one grid line inside the
+    data) from the port's FEGEos at n_e = z rho / m_atom, float64 on the
+    host, as tools/refbuild/make_ttm_fixture.py:56-110 writes them."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import units
+    from imd_tpu_torch.models import widerange as wr
+    from imd_tpu_torch.models.eos import FEGEos
+
+    eos = FEGEos(atomic_mass=atomic_mass)
+    m_kg = atomic_mass * wr.AMU
+    rho = np.linspace(*EOS_RHO)
+    te_k = np.concatenate([np.linspace(*a) for a in EOS_TE_K])
+
+    def table(path, xs, ys, zfun):
+        R, Y = np.meshgrid(xs, ys, indexing="ij")
+        zs = zfun(torch.as_tensor(R), torch.as_tensor(Y)).numpy()
+        x0 = xs[1] + 0.37 * (xs[2] - xs[1])
+        x1 = xs[-2] - 0.37 * (xs[-2] - xs[-3])
+        y0 = ys[1] + 0.37 * (ys[2] - ys[1])
+        y1 = ys[-2] - 0.37 * (ys[-2] - ys[-3])
+        body = np.column_stack([R.ravel(), Y.ravel(), zs.ravel()])
+        with open(path, "w") as f:
+            f.write(f"{len(xs)} {len(ys)}\n")
+            f.write(f"{x0:.10e} {x1:.10e} {y0:.10e} {y1:.10e}\n")
+            np.savetxt(f, body, fmt="%.10e")
+
+    def cve(r, tk):
+        ce = eos.ce(r, z * r / m_kg, tk / wr.EV_TO_K)
+        return ce / (r * wr.EV_TO_K * 1e-30 * units.J_TO_EV)
+
+    def ee(r, ts):
+        u = eos.u_from_te(r, z * r / m_kg, ts * ts / wr.EV_TO_K)
+        return u * units.EV_TO_J / m_kg
+    table(out / "EOS_cve_from_r_te.txt", rho, te_k, cve)
+    table(out / "EOS_ee_from_r_tesqrt.txt", rho, np.sqrt(te_k), ee)
+
+
+@dataclasses.dataclass(frozen=True)
+class SampledFEG:
+    """The function write_eos_tables samples: the FEG EOS at n_e = z rho /
+    m_atom whatever n_e the caller has (the electron pressure keeps it, as
+    TabulatedEOS.pe does)."""
+    feg: object
+    z: float
+    m_kg: float
+
+    def _ne(self, dens):
+        return self.z * dens / self.m_kg
+
+    def ce(self, dens, ne, te):
+        return self.feg.ce(dens, self._ne(dens), te)
+
+    def u_from_te(self, dens, ne, te):
+        return self.feg.u_from_te(dens, self._ne(dens), te)
+
+    def te_from_u(self, dens, ne, u):
+        return self.feg.te_from_u(dens, self._ne(dens), u)
+
+    def pe(self, dens, ne, te):
+        return self.feg.pe(dens, ne, te)
+
+
+def run_eos(dev_name: str, smi: str):
+    """Phase 11's tabulated EOS: the tables (write_eos_tables) under an
+    ``eos_dir``, EOS_STEPS steps of phase 8's file with it through
+    ``cli.main`` in float32 (launches as phase 8's); a finite state; on
+    the last grid's active cells te_from_u(u_from_te(T)) within the
+    bisection's resolution; the tables' own interpolation error against
+    the function they sample (SampledFEG: ce and u at those cells' density
+    and T_e); one calc_ttm with the tables against one with SampledFEG on
+    the last state, T_e and U of the active cells held to 10 x that
+    interpolation error; and the time of one calc_ttm with the tables and
+    with the run's default FEG EOS."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch.models import ttm as t_ttm
+    from imd_tpu_torch.models import widerange as wr
+    from imd_tpu_torch.models.eos import FEGEos, TabulatedEOS
+    from imd_tpu_torch.ops import forces_win as win
+    from imd_tpu_torch.ops.fused_step import scene_to_cl
+
+    with tempfile.TemporaryDirectory(prefix="imd_eos_") as tmp:
+        tmp = Path(tmp)
+        ablation_start(tmp)
+        (tmp / "eos").mkdir()
+        t0 = time.perf_counter()
+        write_eos_tables(tmp / "eos", 26.9815)
+        write_s = time.perf_counter() - t0
+        (tmp / "eos.imd").write_text(ablation_text(steps=EOS_STEPS)
+                                     + "eos_dir eos\n")
+        sim, state, launches, phases, wall = drive(tmp / "eos.imd",
+                                                   "EOS run")
+    feg = FEGEos(atomic_mass=sim.cfg.ttm.atomic_mass)
+    eos = sim.eos
+    sampled = SampledFEG(feg, 3.0, sim.cfg.ttm.atomic_mass * wr.AMU)
+    check(isinstance(eos, TabulatedEOS) and eos.ee.shape == (128, 128),
+          "EOS run: the tabulated EOS")
+    g, tp = state.ttm_grid, sim.ttm_params
+    check(bool(torch.isfinite(g.temp).all()) and bool(torch.isfinite(
+        state.scene.pos).all()), "EOS run: finite state")
+    act = t_ttm.active_mask(g, tp)
+    dens, temp = g.dens[act], g.temp[act]
+    ne = 3.0 * dens / (tp.atomic_mass * wr.AMU)
+    u = eos.u_from_te(dens, ne, temp)
+    back = eos.te_from_u(dens, ne, u)
+    # sqrt(T) bisected over the table's span 40 times: T's resolution is
+    # 2 sqrt(T) span 2^-40 (float32 stops at its own ulp first)
+    span = float(eos.tsq_grid[-1] - eos.tsq_grid[0])
+    res = (2.0 * torch.sqrt(temp.double() * wr.EV_TO_K) * span
+           * 2.0 ** -40 / wr.EV_TO_K)
+    ulp = temp.double() * 2.0 ** -23
+    rt = float(((back.double() - temp.double()).abs()
+                / (4.0 * res + 8.0 * ulp)).max())
+    interp = {k: float(((getattr(eos, k)(dens, ne, temp).double()
+                         - getattr(sampled, k)(dens, ne, temp).double())
+                        .abs() / getattr(sampled, k)(dens, ne, temp)
+                        .double().abs()).max()) for k in ("ce", "u_from_te")}
+    cl = scene_to_cl(state.scene)
+    _, nn = win.eam_rho(cl.xi, cl.alive, sim.eam_run, sim.grid)
+    x = cl.xi[:, 0, :].reshape(-1)
+    atoms = (x, tuple(cl.mom[:, c, :].reshape(-1) for c in range(3)),
+             cl.mass.reshape(-1), cl.alive.reshape(-1))
+    fdi = torch.full((x.numel(),), -1, dtype=torch.int32, device="cuda")
+    dt = sim.cfg.timestep
+    t = torch.full((), (state.step - 1) * dt, dtype=x.dtype, device="cuda")
+
+    def calc(e):
+        return t_ttm.calc_ttm(g, atoms, tp, e, nn.reshape(-1), fdi, dt, t,
+                              tmm_params=sim.tmm_params)[0]
+    ga, gb = calc(eos), calc(sampled)
+    ttm_dev = {k: float(((getattr(ga, k) - getattr(gb, k)).double().abs()
+                         / getattr(gb, k).double().abs().clamp(min=1e-30))
+                        [act].max()) for k in ("temp", "U")}
+    ms = {"tabulated": time_ms(lambda: calc(eos), 3),
+          "feg": time_ms(lambda: calc(feg), 3)}
+    limit = 10.0 * max(interp.values())
+    report = {
+        "config": f"phase 8's file with eos_dir (FEG tables {EOS_RHO[2]} x "
+                  f"{sum(a[2] for a in EOS_TE_K)}, resampled 128 x 128), "
+                  f"{EOS_STEPS} steps from step 285, float32",
+        "tables_write_s": write_s, "load_s": sim.setup_seconds,
+        "ms_per_step": 1e3 * sim.timers.get("main") / sim.counters.steps,
+        "wall_s": wall, "active_cells": int(act.sum()),
+        "roundtrip_of_resolution": rt, "interp_rel": interp,
+        "calc_ttm_tab_vs_feg_rel": ttm_dev, "calc_ttm_limit": limit,
+        "calc_ttm_ms": ms, "launches": launches, "device": dev_name,
+        "nvidia_smi": smi}
+    print(json.dumps({"eos": report}))
+    check(rt <= 1.0, "EOS: te_from_u(u_from_te(T)) within the bisection's "
+          "resolution")
+    check(max(ttm_dev.values()) <= limit, "EOS: calc_ttm with the tables "
+          "against the FEG EOS within 10 x the tables' interpolation error")
+    return report
 
 
 LJ_STEPS = 63
@@ -2587,18 +3163,37 @@ def main() -> int:
     del acl, asim, astate
     torch.cuda.empty_cache()
 
-    # ---- 9. VLATTICE, ELECPRESS and COLRAD on phase 8's run ------------
-    phys, psim, pstate = run_physics(dev_name, smi)
-    pcl = scene_to_cl(pstate.scene)
-    check_all(pcl.xi, pcl.alive, psim.eam_run, psim.grid,
-              f"physics end, dims {psim.grid.dims} cap "
-              f"{psim.grid.capacity}")
-    del pcl, psim, pstate
-    torch.cuda.empty_cache()
+    # phases 9 and 10 write checkpoint sets that phase 11 resumes
+    with tempfile.TemporaryDirectory(prefix="imd_phys_") as phys_dir, \
+            tempfile.TemporaryDirectory(prefix="imd_fdtd_") as fdtd_dir:
+        phys_dir, fdtd_dir = Path(phys_dir), Path(fdtd_dir)
+        phys_stash, fdtd_stash = {}, {}
+        # ---- 9. VLATTICE, ELECPRESS and COLRAD on phase 8's run --------
+        phys, psim, pstate, film_ids = run_physics(dev_name, smi, phys_dir,
+                                                   phys_stash)
+        pcl = scene_to_cl(pstate.scene)
+        check_all(pcl.xi, pcl.alive, psim.eam_run, psim.grid,
+                  f"physics end, dims {psim.grid.dims} cap "
+                  f"{psim.grid.capacity}")
+        del pcl, psim
+        torch.cuda.empty_cache()
 
-    # ---- 10. the FDTD laser on run1m's film -----------------------------
-    fdtd, fsim, fstate = run_fdtd(dev_name, smi)
-    del fsim, fstate
+        # ---- 10. the FDTD laser on run1m's film -------------------------
+        fdtd, fsim, fstate = run_fdtd(dev_name, smi, fdtd_dir, fdtd_stash)
+        del fsim
+        torch.cuda.empty_cache()
+
+        # ---- 11. the restarts of phases 9 and 10 ------------------------
+        r_phys = run_restart_physics(dev_name, smi, phys_dir, pstate,
+                                     phys_stash[1], film_ids)
+        del pstate
+        torch.cuda.empty_cache()
+        r_fdtd = run_restart_fdtd(dev_name, smi, fdtd_dir, fstate,
+                                  fdtd_stash[1])
+        del fstate
+        torch.cuda.empty_cache()
+    # ---- 11b. the tabulated EOS -----------------------------------------
+    eos_report = run_eos(dev_name, smi)
     torch.cuda.empty_cache()
 
     rows = [("eam_rho", "eam_win.cu", "imd_tpu/ops/forces_win.py:306"),
@@ -2655,7 +3250,10 @@ def main() -> int:
         if n == kern:
             for key, rep_ in (("launches_ablation", abl),
                               ("launches_physics", phys),
-                              ("launches_fdtd", fdtd)):
+                              ("launches_fdtd", fdtd),
+                              ("launches_restart_physics", r_phys),
+                              ("launches_restart_fdtd", r_fdtd),
+                              ("launches_eos", eos_report)):
                 if rep_["launches"].get(n):
                     extra[key] = rep_["launches"][n]
         out.append({

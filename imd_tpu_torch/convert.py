@@ -4,7 +4,7 @@ The ``from_*`` functions take imd_tpu objects (Box, CellGrid, PotTable,
 PolyPotential, a pair potential or an EAMPotential with any number of type
 columns, Scene with its types, CLState, TTMParams, TTMGrid, NRBState,
 TMMParams, ColradTables and ColradGridState, FDTDParams and FDTDState,
-VlatParams and VlatState) and read
+VlatParams and VlatState, TabulatedEOS) and read
 every field through ``np.asarray``, so this module never imports jax: it
 works on anything with those attributes.  ``to_numpy`` turns a port
 dataclass back into a dict of NumPy arrays.  The parity tests use both so
@@ -23,6 +23,7 @@ from imd_tpu_torch.models.potential import (EAMPotential, PolyPotential,
 from imd_tpu_torch.models import colrad as colrad_mod
 from imd_tpu_torch.models import fdtd as fdtd_mod
 from imd_tpu_torch.models import nrb as nrb_mod
+from imd_tpu_torch.models.eos import TabulatedEOS
 from imd_tpu_torch.models.tmm import TMMParams
 from imd_tpu_torch.models.ttm import (TTMGrid, TTMParams, VlatParams,
                                       VlatState)
@@ -165,6 +166,14 @@ def vlat_from_jax(vp, vs, device="cuda"):
                        ci=float(vp.ci), atomic_z=float(vp.atomic_z),
                        atomic_mass=float(vp.atomic_mass)),
             VlatState(te=_t(vs.te, device), ti=_t(vs.ti, device)))
+
+
+def eos_from_jax(eos, device="cuda") -> TabulatedEOS:
+    """imd_tpu's TabulatedEOS: its resampled tables in their dtype."""
+    return TabulatedEOS(
+        rho_grid=_t(eos.rho_grid, device), tsq_grid=_t(eos.tsq_grid, device),
+        ee=_t(eos.ee, device), cve=_t(eos.cve, device),
+        atomic_mass=float(eos.atomic_mass))
 
 
 def to_numpy(obj) -> dict:

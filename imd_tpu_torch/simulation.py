@@ -12,17 +12,27 @@ in blocks that end on the next I/O step.  At every block end where some
 output is due, ``observe`` evaluates the observables with the B4 kernels
 (ops/forces_pallas.py: K4 ``eam_rho_e``, K5 ``eam_force_s``; with
 ``ntypes`` > 1 the alloy pair K8, K9) and the
-driver writes ``.eng``, ``.chkpt``/``.itr`` (with ``.nrb``), ``.ttm`` and
-the ``.laser`` log at their intervals.  The flagship physics rides the
-fused loop as in imd_tpu: the TMM laser (``tmm``, models/tmm.py) inside
-calc_ttm, the NRB rear boundary (``nrb_*``, models/nrb.py) inside the step,
-FILTER (``filter_*``, models/filter.py) between blocks every
-``filter_int`` steps, and ``ttm_solver implicit``; and the rest of the 1-D
-TTM physics: the FDTD laser (``fdtd``, models/fdtd.py), COLRAD
-(``colrad``, ``colrad_mpi``; models/colrad.py), the virtual lattice
-(``vlatdim``) and the electron blast force (``elecpress``), whose states
-ride the step's carry and the ``.ttm`` files.  A rebin that overflows
-the cell capacity grows the slot axis and retries the block from the
+driver writes ``.eng``, ``.chkpt``/``.itr`` (with ``.nrb`` and the TTM's
+``.ttm`` and ``.ttmaux.npz``), ``.ttm`` and the ``.laser`` log at their
+intervals, and the interval outputs of imd_tpu's loops: ``.dist``
+(io/distrib.py), ``.ppm`` (io/pictures.py), the selected-config observers
+``.avp``/``.dsp``/``.dem``/``.ef`` and the ``.wf``/``.force``/``.stress``/
+``.nb`` writers (io/select.py; the per-atom stress and the coordination
+from the stencil oracles of ops/forces.py), the ORDPAR Epot column and the
+RELAXINFO ``.eng`` columns.  ``-r N`` resumes a TTM run from its
+checkpoint set: the grid, the COLRAD populations, the FDTD fields, the
+virtual lattice and the per-atom FD index (``_initial_ttm_state``).  The
+flagship physics rides the fused loop as in imd_tpu: the TMM laser
+(``tmm``, models/tmm.py) inside calc_ttm, the NRB rear boundary
+(``nrb_*``, models/nrb.py) inside the step, FILTER (``filter_*``,
+models/filter.py) between blocks every ``filter_int`` steps, and
+``ttm_solver implicit``; and the rest of the 1-D TTM physics: the FDTD
+laser (``fdtd``, models/fdtd.py), COLRAD (``colrad``, ``colrad_mpi``;
+models/colrad.py), the virtual lattice (``vlatdim``) and the electron
+blast force (``elecpress``), whose states ride the step's carry and the
+``.ttm`` files; the EOS is the FEG's or, where ``eos_dir`` holds the
+reference's tables, ``TabulatedEOS``.  A rebin that overflows the cell
+capacity grows the slot axis and retries the block from the
 pre-block state; past ``REGRID_CAPACITY`` slots the grid is first
 re-derived for the current density (``_regrid_scene``).
 
@@ -60,15 +70,21 @@ import torch
 
 from imd_tpu_torch import integrate, units
 from imd_tpu_torch.config import SimConfig
-from imd_tpu_torch.io.chkpt import ChkptData, read_chkpt, read_itr, \
-    write_chkpt, write_itr
+from imd_tpu_torch.io import ttm_io
+from imd_tpu_torch.io.chkpt import ChkptData, data_column, read_chkpt, \
+    read_itr, write_chkpt, write_itr
+from imd_tpu_torch.io.distrib import compute_distrib, write_distrib
 from imd_tpu_torch.io.eng import EngWriter
+from imd_tpu_torch.io.pictures import write_picture
+from imd_tpu_torch.io.select import (SelectWriters, flat_host,
+                                     write_force_potfit, write_nb,
+                                     write_press, write_wf)
 from imd_tpu_torch.io.ttm_io import write_ttm
 from imd_tpu_torch.models import colrad as colrad_mod
 from imd_tpu_torch.models import fdtd as fdtd_mod
 from imd_tpu_torch.models import nrb as nrb_mod
 from imd_tpu_torch.models import ttm as ttm_mod
-from imd_tpu_torch.models.eos import FEGEos
+from imd_tpu_torch.models.eos import FEGEos, TabulatedEOS
 from imd_tpu_torch.models.tmm import do_tmm, make_tmm_params
 from imd_tpu_torch.kernels import MAX_NT
 from imd_tpu_torch.models.potential import (EAMPotential, buckingham_table,
@@ -77,7 +93,9 @@ from imd_tpu_torch.models.potential import (EAMPotential, buckingham_table,
                                             read_eam, read_pot_table,
                                             to_fastpoly, with_interpolation)
 from imd_tpu_torch.models.setfl import maybe_read_dynamo
-from imd_tpu_torch.ops.forces_fast import _from_cl
+from imd_tpu_torch.ops.forces import (compute_eam_forces, compute_nbanz,
+                                      compute_ordpar, compute_pair_forces)
+from imd_tpu_torch.ops.forces_fast import _from_cl, _to_cl
 from imd_tpu_torch.ops.forces_pallas import (compute_pair_forces_pallas,
                                              eam_kernels_cl,
                                              eam_kernels_cl_mt,
@@ -159,19 +177,13 @@ UNPORTED = (
      "A7"),
     ("cpu_dim > 1 (several devices)",
      lambda c: int(np.prod(c.cpu_dim)) > 1, "A11"),
-    ("a restart of a TTM run (-r with ensemble ttm)",
-     lambda c: c.ttm.enabled and bool(c.restart_base), "A6"),
-    ("outputs other than .eng/.chkpt/.itr/.ttm/.laser (dist_int, pic_int,"
-     " socket_int, lb_frequency, force_int, press_int, nb_*, avpos/dsp/dem/"
-     "nmoldyn/dsf/ef observers, hc_int, op_weight, relaxinfo)",
-     lambda c: _any_set(c, (
-         "dist_int", "pic_int", "socket_int", "lb_frequency", "force_int",
-         "press_int", "nb_checkpt_int", "nb_rcut", "avpos_int", "dsp_int",
-         "dem_int", "nmoldyn_int", "dsf_int", "ef_checkpt_int", "hc_int",
-         "op_weight", "relaxinfo")), "A6"),
-    ("shift*_front / shift*_rear vacuum margins",
-     lambda c: any(getattr(c, f"shift{a}_{end}") > 0 for a in "xyz"
-                   for end in ("front", "rear")), "A6"),
+    ("socket_int (online steering, io/socket_io.py)",
+     lambda c: c.socket_int > 0, "A6"),
+    ("lb_frequency (LOADBALANCE)", lambda c: c.lb_frequency > 0, "A11"),
+    ("hc_int (the heat-current profile of the nvx general step)",
+     lambda c: c.hc_int > 0, "A9c"),
+    ("nmoldyn_int / dsf_int (the trajectory observers, io/traj.py)",
+     lambda c: c.nmoldyn_int > 0 or c.dsf_int > 0, "A6"),
 )
 
 
@@ -198,6 +210,8 @@ class SimState:
     cstate: Optional[object] = None   # ColradGridState
     fdtd: Optional[object] = None     # FDTDState
     vstate: Optional[object] = None   # VlatState
+    # [gx,gy,gz,cap] int32: the FD cell of each slot's last update_fd
+    fdi: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -213,15 +227,34 @@ class StepState:
     nbl_count: int = 0            # skin-triggered rebins of the run
 
 
-def _iv_due(gstep: int, iv: int) -> bool:
-    return iv > 0 and gstep % iv == 0
+def _iv_pair(iv):
+    """An interval as (interval, phase): AVPOS fires on the (steps -
+    avpos_start) lattice (imd_main_3d.c:629-639) and passes a pair."""
+    return iv if isinstance(iv, tuple) else (int(iv), 0)
 
 
-def _clamp_block(b: int, cur: int, intervals) -> int:
-    """Shrink a block so that it ends on the next multiple of any active
-    interval (imd_tpu simulation.py:78)."""
-    cands = [i - cur % i for i in intervals if i > 0]
+def _iv_due(gstep: int, iv) -> bool:
+    i, ph = _iv_pair(iv)
+    return i > 0 and (gstep - ph) % i == 0
+
+
+def _clamp_block(b: int, cur: int, intervals, specials=()) -> int:
+    """Shrink a block so that it ends on the next due step of any active
+    interval (on its phase lattice) or of a one-off step (imd_tpu
+    simulation.py:78)."""
+    cands = []
+    for iv in intervals:
+        i, ph = _iv_pair(iv)
+        if i > 0:
+            cands.append(i - (cur - ph) % i)
+    cands += [s - cur for s in specials if s > cur]
     return min([b] + cands)
+
+
+def _block_size(steps: int, intervals) -> int:
+    """The dispatch block: the smallest interval, else 100 steps."""
+    return max(1, min([steps] + [_iv_pair(i)[0] for i in intervals])
+               if intervals else min(steps, 100))
 
 
 def _sync(device) -> None:
@@ -358,13 +391,59 @@ class Simulation:
                                      radial=False))
         self.cutoff = math.sqrt(self.eam.cutoff2)
 
+    def _apply_generate_shifts(self, pos, typ, box_diag, shf, shr):
+        """Vacuum margins on a generated lattice (imd_tpu
+        simulation.py:444-484; imd_generate.c:314-365 and generate_fcc's
+        margin filter, 533-540): x and y grow by front + rear, rounded up
+        to whole lattice cells (the excess widens the rear margin), the
+        grown box is filled and the atoms inside the x/y margins dropped;
+        z only grows the box.  As imd_tpu, x/y round to whole box_unit
+        cells, not to multiples of cpu_dim * box_unit."""
+        cfg = self.cfg
+        bp = np.asarray(cfg.box_param, int)
+        if bp.size < 3 or np.any(bp[:3] <= 0) or \
+                cfg.coordname.lstrip("_").lower() in ("qc", "quasi"):
+            raise ValueError("shift*_front/rear need a 3-component "
+                             "box_param cubic-family generator")
+        bu_ax = box_diag[:3] / bp[:3]
+        newbp = bp.copy()
+        rear = shr.copy()
+        for ax in (0, 1):
+            enlarged = box_diag[ax] + shf[ax] + shr[ax]
+            newbp[ax] = int(math.ceil(enlarged / bu_ax[ax] - 1e-9))
+            rear[ax] += newbp[ax] * bu_ax[ax] - enlarged
+        pos, typ, box_diag = generate_atoms(cfg.coordname, tuple(newbp),
+                                            cfg.box_unit, cfg.ntypes)
+        box_diag = np.asarray(box_diag, float)
+        pos = np.asarray(pos, float)
+        keep = np.ones(len(pos), bool)
+        for ax in (0, 1):
+            if shf[ax] > 0:
+                keep &= pos[:, ax] >= shf[ax]
+            if rear[ax] > 0:
+                keep &= pos[:, ax] <= box_diag[ax] - rear[ax]
+        box_diag[2] += shf[2] + shr[2]
+        return pos[keep], np.asarray(typ)[keep], box_diag
+
     def _load_atoms(self):
-        """Generated lattice or .chkpt start (simulation.py:483-605)."""
+        """Generated lattice or .chkpt start (simulation.py:483-605), with
+        the shift*_front/rear vacuum margins; a checkpoint's DISLOC
+        reference columns (x_ref y_ref z_ref Epot_ref) seed the .dsp/.dem
+        observers."""
         cfg = self.cfg
         itr = {}
+        self._disloc_ref = None
+        shf = np.array([cfg.shiftx_front, cfg.shifty_front,
+                        cfg.shiftz_front], float)
+        shr = np.array([cfg.shiftx_rear, cfg.shifty_rear, cfg.shiftz_rear],
+                       float)
+        have_shift = bool(np.any(shf > 0) or np.any(shr > 0))
         if cfg.coordname.startswith("_"):
             pos, typ, box_diag = generate_atoms(cfg.coordname, cfg.box_param,
                                                 cfg.box_unit, cfg.ntypes)
+            if have_shift:
+                pos, typ, box_diag = self._apply_generate_shifts(
+                    pos, typ, np.asarray(box_diag, float), shf, shr)
             number = np.arange(len(pos))
             mass = np.asarray(cfg.masses)[typ]
             vel = None
@@ -377,6 +456,12 @@ class Simulation:
             if cfg.itrname:
                 itr = read_itr(self._path(cfg.itrname))
             pos, vel, typ, number = d.pos, d.vel, d.type, d.number
+            xr = [data_column(d, n) for n in ("x_ref", "y_ref", "z_ref")]
+            er = data_column(d, "Epot_ref")
+            have_xr = all(c is not None for c in xr)
+            if have_xr or er is not None:
+                self._disloc_ref = (number, np.stack(xr, axis=1)
+                                    if have_xr else None, er)
             mass = d.mass
             box_x = itr.get("box_x", d.box_x if d.box_x is not None
                             else cfg.box_x)
@@ -384,6 +469,13 @@ class Simulation:
                             else cfg.box_y)
             box_z = itr.get("box_z", d.box_z if d.box_z is not None
                             else cfg.box_z)
+            if have_shift:
+                # the box diagonal grows by front + rear, the atoms move by
+                # front (imd_io_3d.c:87-89, 341-345)
+                box_x = [box_x[0] + shf[0] + shr[0], box_x[1], box_x[2]]
+                box_y = [box_y[0], box_y[1] + shf[1] + shr[1], box_y[2]]
+                box_z = [box_z[0], box_z[1], box_z[2] + shf[2] + shr[2]]
+                pos = np.asarray(pos, float) + shf[None, :]
             self.do_maxwell = cfg.do_maxwell or not d.have_vel
         if not np.any(np.asarray(box_x)):
             raise ValueError("no box: neither header #X/#Y/#Z nor box_x "
@@ -579,15 +671,22 @@ class Simulation:
         return nrb_mod.init_nrb(self.scene, cfg.nrb.alat, cfg.nrb.k,
                                 cfg.nrb.eps, mass, cfg.pbc_dirs)
 
-    def _select_eos(self) -> FEGEos:
-        """The closed-form FEG EOS; the reference's tabulated EOS (EOS_*.txt
-        under eos_dir, simulation.py:676) is not ported."""
+    def _select_eos(self):
+        """The tabulated EOS when EOS_cve_from_r_te.txt and
+        EOS_ee_from_r_tesqrt.txt exist under eos_dir (simulation.py:676-691;
+        the reference loads them unconditionally, imd_ttm.c:1130-1135),
+        else the closed-form FEG EOS.  A malformed table raises
+        RuntimeError."""
         d = self.cfg.ttm.eos_dir
-        for name in ("EOS_cve_from_r_te.txt", "EOS_ee_from_r_tesqrt.txt"):
-            if os.path.exists(self._path(os.path.join(d, name))):
-                raise NotImplementedError(
-                    f"the tabulated EOS ({name} under eos_dir {d!r}) is not "
-                    "ported to imd_tpu_torch yet (ROADMAP A5)")
+        cve = self._path(os.path.join(d, "EOS_cve_from_r_te.txt"))
+        ee = self._path(os.path.join(d, "EOS_ee_from_r_tesqrt.txt"))
+        if os.path.exists(cve) and os.path.exists(ee):
+            try:
+                return TabulatedEOS.load(cve, ee, self.cfg.ttm.atomic_mass,
+                                         dtype=self.dtype,
+                                         device=self.device)
+            except Exception as e:
+                raise RuntimeError(f"EOS table load failed: {e}") from e
         return FEGEos(atomic_mass=self.cfg.ttm.atomic_mass)
 
     def _initial_ttm_grid(self):
@@ -596,6 +695,50 @@ class Simulation:
             grid = grid.replace(temp=torch.full_like(
                 grid.temp, self.cfg.ttm.init_t_el), init_done=True)
         return grid
+
+    def _initial_ttm_state(self):
+        """(grid, aux, fdi) the TTM starts from: fresh, or on a restart
+        restored as imd_tpu's init_state does (simulation.py:1692-1745):
+        the grid and the COLRAD populations from ``<restart_base>.ttm``
+        (ttm_read, imd_ttm.c:1983; colrad_read, imd_colrad.c:3028), then
+        from the ``.ttmaux.npz`` sidecar the grid at full precision, the
+        per-atom FD index by atom id, the FDTD fields and the virtual
+        lattice; a reference-written ``.ttm`` without a sidecar gives the
+        virtual lattice from its natoms -2 rows.  ``fdi`` is the Scene
+        layout's [gx,gy,gz,cap] index, or None (start at -1)."""
+        grid = self._initial_ttm_grid()
+        aux = self._initial_aux()
+        rb = self.cfg.restart_base
+        if not rb:
+            return grid, aux, None
+        states = self._aux_states((None,) * 3 + aux + (None,))
+        cstate, fdtd, vstate = (states.get(k) for k in ("cstate", "fdtd",
+                                                        "vstate"))
+        fdi = None
+        ttm_file = self._path(rb + ".ttm")
+        aux_file = self._path(rb + ".ttmaux.npz")
+        if os.path.exists(ttm_file):
+            grid = ttm_io.grid_from_ttm(ttm_file, grid, self.dtype)
+            if cstate is not None:
+                c = ttm_io.colrad_from_ttm(ttm_file, self.colrad_tab.n_lev,
+                                           self.dtype, self.device)
+                if c is not None:
+                    cstate = cstate.replace(c=c.reshape(cstate.c.shape))
+        if os.path.exists(aux_file):
+            grid = ttm_io.grid_overlay_from_aux(aux_file, grid)
+            f = ttm_io.fdi_from_aux(aux_file, self.scene.id,
+                                    self.scene.mask)
+            if f is not None:
+                fdi = torch.as_tensor(f).to(self.device)
+            f2, v2 = ttm_io.read_ttm_aux(aux_file, fdtd_template=fdtd,
+                                         vlat_template=vstate)
+            fdtd = f2 if f2 is not None else fdtd
+            vstate = v2 if v2 is not None else vstate
+        elif vstate is not None and os.path.exists(ttm_file):
+            v2 = ttm_io.vlat_from_ttm(ttm_file, vstate)
+            vstate = v2 if v2 is not None else vstate
+        aux = tuple(a for a in (cstate, fdtd, vstate) if a is not None)
+        return grid, aux, fdi
 
     def _initial_aux(self) -> tuple:
         """The start of the step's extra carry, in imd_tpu's order: the
@@ -647,13 +790,15 @@ class Simulation:
         return f.interval if f.enabled and f.interval > 0 else 0
 
     def _build(self, template: Scene, ttm_grid, step0: int,
-               aux: tuple = ()):
+               aux: tuple = (), fdi0: Optional[torch.Tensor] = None):
         """The fused step, its carry and the FILTER application (or None)
         for ``template`` (rebuilt after a capacity growth or a re-grid),
         the TTM step's carry (cl, grid, fdi, *aux, k) with ``aux`` the
         COLRAD or FDTD state and the virtual lattice's.  The stored FD
-        index restarts at -1, as imd_tpu's does when the slot layout
-        changes."""
+        index starts from ``fdi0`` (a restart's, in the Scene layout) in
+        the cells-last layout when its shape is the template's, else at
+        -1, as imd_tpu's does when the slot layout changes
+        (simulation.py:2546-2555)."""
         cfg = self.cfg
         filt = (make_filter_apply(template, cfg.filter, self.cutoff)
                 if self._filter_int() else None)
@@ -670,8 +815,12 @@ class Simulation:
                 elecpress=bool(cfg.ttm.elecpress), colrad=colrad,
                 fdtd_params=self.fdtd_params, ntypes=cfg.ntypes,
                 timer=self.timer, counters=self.counters)
-            fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
-                             device=self.device)
+            if fdi0 is not None and fdi0.shape == template.type.shape:
+                fdi = _to_cl(fdi0.to(torch.int32),
+                             template.grid.dims).reshape(-1).contiguous()
+            else:
+                fdi = torch.full((cl.mass.numel(),), -1, dtype=torch.int32,
+                                 device=self.device)
             return step, (cl, ttm_grid, fdi, *aux, step0), filt
         step, cl = make_fused_step(template, self.eam_run, cfg.timestep,
                                    nrb_state=self.nrb_state,
@@ -700,7 +849,9 @@ class Simulation:
         grid and the states of its physics."""
         self.n_observe += 1
         cl = carry[0]
-        ttm = ({"ttm_grid": carry[1], **self._aux_states(carry)}
+        dims = template.grid.dims
+        ttm = ({"ttm_grid": carry[1], **self._aux_states(carry),
+                "fdi": _from_cl(carry[2].reshape(cl.alive.shape), dims)}
                if len(carry) > 1 else {})
         nt = self.cfg.ntypes
         with self.timers.section("observe"):
@@ -713,7 +864,6 @@ class Simulation:
             af = cl.alive.to(torch.float64)
             ekin = 0.5 * ((cl.mom.double() ** 2).sum(1) * af
                           / cl.mass.double()).sum()
-            dims = template.grid.dims
             scene = cl_to_scene(cl, template).replace(
                 force=_from_cl(F, dims), epot=_from_cl(epot, dims))
             vals = torch.cat([epot.double().sum()[None], ekin[None],
@@ -730,21 +880,28 @@ class Simulation:
         steps = self._steps_to_run(steps)
         ttm_on = self.ensemble == "ttm"
         filter_int = self._filter_int()
+        sel = self._make_select()
         io_intervals = [i for i in (cfg.eng_int, cfg.checkpt_int,
-                                    cfg.ttm_int) if i > 0]
+                                    cfg.ttm_int) + self._output_intervals()
+                        if i > 0] + (sel.intervals() if sel else [])
+        specials = sel.special_steps() if sel else ()
         intervals = io_intervals + ([filter_int] if filter_int else [])
-        block = max(1, min([steps] + intervals) if intervals
-                    else min(steps, 100))
+        block = _block_size(steps, intervals)
         template = self.scene
-        step, carry, filt = self._build(
-            template, self._initial_ttm_grid() if ttm_on else None,
-            self.step_count, self._initial_aux() if ttm_on else ())
+        grid0, aux0, fdi0 = None, (), None
+        if ttm_on:
+            t0 = time.perf_counter()
+            grid0, aux0, fdi0 = self._initial_ttm_state()
+            if cfg.restart_base:
+                _sync(self.device)
+                self.setup_parts["ttm_restore"] = time.perf_counter() - t0
+        step, carry, filt = self._build(template, grid0, self.step_count,
+                                        aux0, fdi0)
         self.timers.start("total")
         nactive = integrate.count_active_dof(self.scene)
-        if cfg.eng_int > 0 and self.eng is None:
-            self.eng = EngWriter(self._path(cfg.outfiles + ".eng"),
-                                 ttm=cfg.ttm.enabled,
-                                 append=cfg.simulation_phase > 1)
+        self._open_eng()
+        if sel is not None:
+            sel.init_refs(self.scene, self.step_count)
         done = 0
         state = None
         grow_tries = 0
@@ -752,7 +909,7 @@ class Simulation:
         while done < steps:
             prev_carry = carry
             b = _clamp_block(min(block, steps - done),
-                             self.step_count + done, intervals)
+                             self.step_count + done, intervals, specials)
             t0 = time.perf_counter()
             with self.timers.section("main"):
                 for _ in range(b):
@@ -773,7 +930,7 @@ class Simulation:
             gstep = self.step_count + done
             control = self._control_files()
             if (any(_iv_due(gstep, i) for i in io_intervals)
-                    or any(control) or done >= steps):
+                    or gstep in specials or any(control) or done >= steps):
                 state = self.observe(carry, template, gstep)
                 with self.timers.section("io"):
                     if _iv_due(gstep, cfg.eng_int):
@@ -790,6 +947,7 @@ class Simulation:
                             state.ttm_grid,
                             colrad_c=None if cs is None else cs.c,
                             colrad_p=None if cs is None else cs.p)
+                    self._write_outputs(state, gstep, sel)
                     if self._obey_control(state, gstep, *control):
                         break
             if filt is not None and done < steps \
@@ -921,23 +1079,27 @@ class Simulation:
         ``_overflow_retry``."""
         cfg = self.cfg
         steps = self._steps_to_run(steps)
-        intervals = [i for i in (cfg.eng_int, cfg.checkpt_int) if i > 0]
-        block = max(1, min([steps] + intervals) if intervals
-                    else min(steps, 100))
+        sel = self._make_select()
+        intervals = [i for i in (cfg.eng_int, cfg.checkpt_int)
+                     + self._output_intervals()
+                     if i > 0] + (sel.intervals() if sel else [])
+        specials = sel.special_steps() if sel else ()
+        block = _block_size(steps, intervals)
         step_fn = self.make_step_fn()
         st = self.init_state()
         self.timers.start("total")
         nactive = integrate.count_active_dof(self.scene)
-        if cfg.eng_int > 0 and self.eng is None:
-            self.eng = EngWriter(self._path(cfg.outfiles + ".eng"),
-                                 append=cfg.simulation_phase > 1)
+        self._open_eng()
+        if sel is not None:
+            sel.init_refs(self.scene, self.step_count)
         done = 0
         state = None
         grow_tries = 0
         regrid_at = -1
         while done < steps:
             prev = st
-            b = _clamp_block(min(block, steps - done), st.step, intervals)
+            b = _clamp_block(min(block, steps - done), st.step, intervals,
+                             specials)
             t0 = time.perf_counter()
             with self.timers.section("main"):
                 for _ in range(b):
@@ -954,7 +1116,7 @@ class Simulation:
             gstep = st.step
             control = self._control_files()
             if not (any(_iv_due(gstep, i) for i in intervals)
-                    or any(control) or done >= steps):
+                    or gstep in specials or any(control) or done >= steps):
                 continue
             state = self._sim_state(st)
             with self.timers.section("io"):
@@ -962,6 +1124,7 @@ class Simulation:
                     self._write_eng(state, nactive)
                 if _iv_due(gstep, cfg.checkpt_int):
                     self.write_checkpoint(state, gstep // cfg.checkpt_int)
+                self._write_outputs(state, gstep, sel)
                 if self._obey_control(state, gstep, *control):
                     break
         if state is None:
@@ -1011,9 +1174,151 @@ class Simulation:
         return abs(float(np.linalg.det(np.asarray(self.box.h,
                                                   np.float64))))
 
+    def _open_eng(self):
+        """The .eng writer of the run (later phases append), with the
+        RELAXINFO columns when ``relaxinfo`` is set."""
+        cfg = self.cfg
+        if cfg.eng_int > 0 and self.eng is None:
+            self.eng = EngWriter(
+                self._path(cfg.outfiles + ".eng"), ttm=cfg.ttm.enabled,
+                extra_cols=(("delta_epot", "xnorm", "xmax")
+                            if cfg.relaxinfo else ()),
+                append=cfg.simulation_phase > 1)
+
+    def _output_intervals(self) -> tuple:
+        """The cadences of the interval outputs besides .eng, .chkpt and
+        .ttm, which join the block-size rule (simulation.py:2478-2484)."""
+        c = self.cfg
+        return (c.dist_int, c.pic_int, c.force_int, c.press_int,
+                c.nb_checkpt_int)
+
+    def _make_select(self) -> Optional[SelectWriters]:
+        """The selected-config observers (.avp/.dsp/.dem/.ef) when any is
+        on, seeded with a checkpoint's DISLOC references."""
+        self._sel = None
+        if SelectWriters.wanted(self.cfg):
+            self._sel = SelectWriters(self.cfg, self.box.h, self.box.pbc,
+                                      self._path)
+            if self._disloc_ref is not None:
+                self._sel.preload_refs(*self._disloc_ref)
+        return self._sel
+
+    def _write_outputs(self, state: SimState, gstep: int, sel):
+        """The interval outputs of imd_tpu's loops at ``gstep``
+        (simulation.py:2776-2810): the .wf/.force/.stress/.nb writers, the
+        .dist and .ppm snapshots and the selected-config observers (the
+        ORDPAR column when one reads the epot).  Each writer's wall time
+        goes to the timers as ``write_<suffix>``."""
+        cfg = self.cfg
+        self._write_periodic_extras(state, gstep)
+        if _iv_due(gstep, cfg.dist_int):
+            with self.timers.section("write_dist"):
+                fields = compute_distrib(state.scene, cfg.dist_dim)
+                names = [n for n, on in cfg.dist_flags.items()
+                         if on and n in fields] or ["num", "Ekin", "Epot"]
+                bh = np.abs(np.diag(np.asarray(self.box.h, np.float64)))
+                write_distrib(
+                    self._path(f"{cfg.outfiles}."
+                               f"{gstep // cfg.dist_int}.dist"),
+                    fields, names, cfg.dist_dim,
+                    bh / np.asarray(cfg.dist_dim, np.float64),
+                    mode="binary" if cfg.binary_output else "ascii")
+        if _iv_due(gstep, cfg.pic_int):
+            with self.timers.section("write_ppm"):
+                write_picture(self._path(
+                    f"{cfg.outfiles}.{gstep // cfg.pic_int}.ppm"),
+                    state.scene)
+        if sel is not None and (any(_iv_due(gstep, i)
+                                    for i in sel.intervals())
+                                or gstep in sel.special_steps()):
+            with self.timers.section("write_select"):
+                sel.step(self._with_ordpar(state.scene)
+                         if sel.needs_epot(gstep) else state.scene, gstep)
+
+    def _write_periodic_extras(self, state: SimState, gstep: int):
+        """The `.wf` force dumps (WRITEF, imd_main_3d.c:436-440) with the
+        potfit `.force` file, the per-atom `.stress` (STRESS_TENS,
+        write_config_press, imd_io.c:1264; the stencil oracle on the
+        potential's tables) and the `.nb` coordination-filtered configs
+        (NNBR, imd_main_3d.c:750-752) (simulation.py:3216-3280)."""
+        cfg = self.cfg
+        wf_due = _iv_due(gstep, cfg.force_int)
+        nb_due = _iv_due(gstep, cfg.nb_checkpt_int) and any(cfg.nb_rcut)
+        press_due = _iv_due(gstep, cfg.press_int)
+        if not (wf_due or nb_due or press_due):
+            return
+        fl = flat_host(state.scene)
+        m = state.scene.mask.reshape(-1)
+        h = np.asarray(self.box.h)
+        if press_due:
+            with self.timers.section("write_stress"):
+                if self.eam is not None:
+                    res = compute_eam_forces(state.scene, self.eam,
+                                             ntypes=cfg.ntypes,
+                                             per_atom_stress=True)
+                else:
+                    res = compute_pair_forces(state.scene, self.pair,
+                                              ntypes=cfg.ntypes,
+                                              per_atom_stress=True)
+                pt = res.presstens_atom.reshape(-1, 6)[m].cpu().numpy()
+                write_press(self._path(
+                    f"{cfg.outfiles}.{gstep // cfg.press_int}.stress"),
+                    fl, pt, h, self.box.pbc)
+        if wf_due:
+            with self.timers.section("write_wf"):
+                write_wf(self._path(
+                    f"{cfg.outfiles}.{gstep // cfg.force_int}.wf"),
+                    fl, h, self.box.pbc, force_all=bool(cfg.force_all))
+                if cfg.force_potfit:
+                    n = max(len(fl["epot"]), 1)
+                    write_force_potfit(self._path(
+                        f"{cfg.outfiles}.{gstep // cfg.force_int}.force"),
+                        fl, h, self.box.pbc, float(fl["epot"].sum()) / n,
+                        presstens=np.asarray(state.presstens),
+                        volume=self._volume())
+        if nb_due:
+            with self.timers.section("write_nb"):
+                nb = compute_nbanz(state.scene, self._nb_rcut_table(),
+                                   cfg.ntypes).reshape(-1)[m].cpu().numpy()
+                write_nb(self._path(
+                    f"{cfg.outfiles}.{gstep // cfg.nb_checkpt_int}.nb"),
+                    fl, nb, h, self.box.pbc,
+                    [int(v) for v in cfg.nb_cut_lower],
+                    [int(v) for v in cfg.nb_cut_upper],
+                    cfg.pic_ll, cfg.pic_ur)
+
+    def _nb_rcut_table(self):
+        """nb_rcut padded or clipped to [ntypes * ntypes]
+        (imd_param.c:663)."""
+        nn = self.cfg.ntypes * self.cfg.ntypes
+        rc = list(self.cfg.nb_rcut)
+        return (rc + [rc[-1] if rc else 0.0] * nn)[:nn]
+
+    def _ordpar_active(self) -> bool:
+        return bool(self.cfg.op_weight)
+
+    def _with_ordpar(self, scene: Scene) -> Scene:
+        """ORDPAR: the configuration outputs carry the weighted short-range
+        order parameter in the Epot column (imd_io.c:3283; the reference
+        computes it in every force call, imd_forces.c:195-198, here at the
+        I/O steps; the .eng's total is unchanged)."""
+        if not self._ordpar_active():
+            return scene
+        pot = self.pair if self.pair is not None else self.eam.pair
+        nt = max(int(self.cfg.ntypes), 1)
+        nn = nt * nt
+        w = (list(self.cfg.op_weight) + [0.0] * nn)[:nn]
+        rc = list(self.cfg.op_rcut) or [self.cutoff] * nn
+        rc = (rc + [rc[-1]] * nn)[:nn]
+        return scene.replace(epot=compute_ordpar(scene, pot, rc, w,
+                                                 ntypes=nt))
+
     def _write_eng(self, state: SimState, nactive: float):
         """One .eng line (simulation.py:2960): the epot of the force call
-        at the start of the last step, labelled (step-1)*dt."""
+        at the start of the last step, labelled (step-1)*dt; with
+        ``relaxinfo`` the RELAXINFO columns (imd_io.c:2454-2457):
+        |delta Epot| since the last line, sqrt(xnorm / nactive) and
+        sqrt(x_max2) with the last step's displacement dt p / m."""
         n = max(n_atoms(state.scene), 1)
         if (state.ttm_grid is not None and state.ttm_grid.cfl_overflow
                 and not getattr(self, "_cfl_warned", False)):
@@ -1027,12 +1332,22 @@ class Simulation:
         if self.cfg.ttm.enabled:
             ttm_eng = float(ttm_mod.electron_energy_total(state.ttm_grid,
                                                           self.ttm_params))
+        extra = []
+        if self.cfg.relaxinfo:
+            ep_a = state.epot_total / n
+            extra.append(ep_a - getattr(self, "_old_epot_eng", ep_a))
+            self._old_epot_eng = ep_a
+            fl = flat_host(state.scene)
+            dx = self.cfg.timestep * fl["mom"] / fl["mass"][:, None]
+            extra.append(float(np.sqrt((dx * dx).sum()
+                                       / max(nactive, 1.0))))
+            extra.append(float(np.sqrt((dx * dx).max(initial=0.0))))
         self.eng.write(
             time=float(state.step - 1) * self.cfg.timestep,
             epot_per_atom=state.epot_total / n,
             temperature=2.0 * state.ekin / max(nactive, 1.0),
             pressure=(2.0 * state.ekin + state.virial) / (3.0 * vol),
-            volume=vol, ttm_eng=ttm_eng)
+            volume=vol, ttm_eng=ttm_eng, extra=extra)
 
     def _write_laser_log(self, state: SimState, gstep: int):
         """The .laser log line (simulation.py:3182; the reference's
@@ -1067,31 +1382,60 @@ class Simulation:
                     f"{refl:.6e}{active}\n")
 
     def _chkpt_data(self, state: SimState) -> ChkptData:
-        """Checkpoint record: number type mass x y z vx vy vz Epot, and the
-        host density eam_rho unless ``norhoh`` (simulation.py:3044)."""
+        """Checkpoint record with the reference's extra columns in its
+        order (simulation.py:3044; write_header_config, imd_io.c:3266-3336):
+        number type mass x y z vx vy vz, Epot (the order parameter
+        ``ordpar`` with ORDPAR), ``n_nbr`` with nb_rcut, the DISLOC
+        references x_ref y_ref z_ref Epot_ref of the .dsp/.dem observers,
+        and the host density eam_rho unless ``norhoh`` (the observe()'s,
+        where imd_tpu recomputes it from the tables)."""
+        cfg = self.cfg
+        scene = self._with_ordpar(state.scene)
         flat = {k: v.detach().cpu().numpy()
-                for k, v in flatten_atoms(state.scene).items()}
+                for k, v in flatten_atoms(scene).items()}
         m = flat["mask"]
         mass = flat["mass"][m]
+        pos = flat["pos"][m]
+        epot = flat["epot"][m]
         columns = "number type mass x y z vx vy vz Epot".split()
-        data = flat["epot"][m][:, None]
-        if state.rho is not None and not self.cfg.norhoh:
+        data = epot[:, None]
+        if any(cfg.nb_rcut):
+            nb = compute_nbanz(state.scene, self._nb_rcut_table(),
+                               cfg.ntypes).reshape(-1).cpu().numpy()[m]
+            data = np.concatenate([data, nb[:, None]], axis=1)
+            columns.append("n_nbr")
+        sel = getattr(self, "_sel", None)
+        if sel is not None and (sel.ort_ref is not None
+                                or sel.epot_ref is not None):
+            # ids without a captured reference keep their current state
+            ids = flat["id"][m].astype(int)
+            n = ids.max() + 1 if len(ids) else 0
+            oref = sel._ensure(sel.ort_ref, n, 3, fill=np.nan)[ids]
+            miss = np.isnan(oref[:, 0])
+            oref[miss] = pos[miss]
+            eref = sel._ensure(sel.epot_ref, n, fill=np.nan)[ids]
+            eref[np.isnan(eref)] = epot[np.isnan(eref)]
+            data = np.concatenate([data, oref, eref[:, None]], axis=1)
+            columns += "x_ref y_ref z_ref Epot_ref".split()
+        if state.rho is not None and not cfg.norhoh:
             rho = state.rho.reshape(-1).detach().cpu().numpy()[m]
             data = np.concatenate([data, rho[:, None]], axis=1)
             columns.append("eam_rho")
+        if self._ordpar_active():
+            columns = ["ordpar" if c == "Epot" else c for c in columns]
         h = np.asarray(self.box.h)
         return ChkptData(number=flat["id"][m], type=flat["vtype"][m],
-                         mass=mass, pos=flat["pos"][m],
+                         mass=mass, pos=pos,
                          vel=flat["mom"][m] / mass[:, None], data=data,
                          columns=columns, box_x=h[0], box_y=h[1],
                          box_z=h[2])
 
     def write_checkpoint(self, state: SimState, fzhlr: int):
-        """<outfiles>.<fzhlr:05d>.{chkpt,itr[,ttm][,nrb]}; fzhlr -1 names
-        the end-of-run "-final" set (imd_io_3d.c:995).  The .ttm carries
-        the COLRAD columns and the virtual lattice's rows.  The TTM restart
-        sidecar (.ttmaux.npz) is not written: TTM restarts are not
-        ported."""
+        """<outfiles>.<fzhlr:05d>.{chkpt,itr[,ttm,ttmaux.npz][,nrb]};
+        fzhlr -1 names the end-of-run "-final" set (imd_io_3d.c:995).  The
+        .ttm carries the COLRAD columns and the virtual lattice's rows, the
+        .ttmaux.npz sidecar the rest of the TTM's restart state
+        (simulation.py:3141-3151), the FD index keyed by atom id."""
         cfg = self.cfg
         d = self._chkpt_data(state)
         base = self._path(cfg.outfiles + "-final" if fzhlr == -1
@@ -1106,5 +1450,9 @@ class Simulation:
                       colrad_c=None if cs is None else cs.c,
                       colrad_p=None if cs is None else cs.p,
                       vlat=state.vstate)
+            ttm_io.write_ttm_aux(base + ".ttmaux.npz", fdtd=state.fdtd,
+                                 vlat=state.vstate, grid=state.ttm_grid,
+                                 fdi=state.fdi, ids=state.scene.id,
+                                 alive=state.scene.mask)
         if self.nrb_state is not None:
             nrb_mod.write_nrb(base + ".nrb", self.nrb_state)

@@ -429,8 +429,11 @@ UNPORTED = {
     "implicit": ("ensemble ttm\nttm_solver implicit\nlj_epsilon 0.35\n"
                  "lj_sigma 2.62\n", "A9b"),
     "cpu_dim": ("cpu_dim 2 1 1\n", "A11"),
-    "dist_int": ("dist_int 4\n", "A6"),
-    "shift": ("shiftx_front 10.0\n", "A6"),
+    "socket_int": ("socket_int 4\n", "A6"),
+    "lb_frequency": ("lb_frequency 4\n", "A11"),
+    "hc_int": ("hc_int 4\n", "A9c"),
+    "nmoldyn_int": ("nmoldyn_int 4\n", "A6"),
+    "dsf_int": ("dsf_int 4\n", "A6"),
 }
 
 
@@ -443,18 +446,23 @@ def test_unported_settings_raise(name):
         t_sim.Simulation(cfg, device="cpu")
 
 
-def test_ttm_restart_and_eos_tables_raise(rundir):
-    cfg = TSimConfig.from_params(parse_param_text(
-        BASE.format(out="u", ens="ttm") + TTM))
-    cfg.restart_base = "u.00001"
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        t_sim.Simulation(cfg, device="cpu")
-    (rundir / "eos").mkdir()
-    (rundir / "eos" / "EOS_cve_from_r_te.txt").write_text("0\n")
+def test_ttm_restart_and_eos_tables_raise(rundir, tmp_path):
+    """A TTM restart and the tabulated EOS are ported: ``-r`` with no such
+    checkpoint raises, and so does a malformed EOS table (RuntimeError, as
+    imd_tpu's _select_eos)."""
+    (tmp_path / "u.imd").write_text(BASE.format(out="u", ens="ttm") + TTM)
+    with pytest.raises(SystemExit, match="restart 7"):
+        cli.main(["-p", str(tmp_path / "u.imd"), "-r", "7", "--device",
+                  "cpu"])
+    (tmp_path / "eos").mkdir()
+    for name in ("EOS_cve_from_r_te.txt", "EOS_ee_from_r_tesqrt.txt"):
+        (tmp_path / "eos" / name).write_text("0\n")
+    for name in ("pair.pt", "rho.pt", "embed.pt", "start.chkpt"):
+        shutil.copy(rundir / name, tmp_path / name)
     cfg = TSimConfig.from_params(parse_param_text(
         BASE.format(out="u", ens="ttm") + TTM + "eos_dir eos\n"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        t_sim.Simulation(cfg, workdir=str(rundir), device="cpu")
+    with pytest.raises(RuntimeError, match="EOS table load failed"):
+        t_sim.Simulation(cfg, workdir=str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("binary", [False, True], ids=["ascii", "binary"])
