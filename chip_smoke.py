@@ -169,10 +169,32 @@ te_from_u(u_from_te(T)) within the bisection's resolution, one calc_ttm
 with the tables against the FEG function they sample within 10 x their
 interpolation error, and one calc_ttm with each EOS timed.
 
+Phase 12 runs the general step's ensembles through ``cli.main``, launch
+counts set to 0 just before each file: examples/melt_quench as written
+but on the flagship's 63^3 fcc cells (1,000,188 atoms), its phases
+ending at steps 60 / 120 / 200 and .eng every 20 (MQ_TAGS): nvt, ber
+with the endtemp ramp, glok.  K12 must launch once per step run and no
+other kernel, no atom may be lost, the .eng must hold the eta*tau_eta
+column with non-zero values in phase 1, each ber block's ramp target
+(printed) must be the reference's formula over the absolute step, and
+FIRE's state must be consistent with its uphill count (printed): a
+timestep moved after an uphill event, else 0.1 with MIX decayed once a
+step.  A 10^3-cell copy from one .chkpt start runs in float32 on the
+card and in float64 on the host (the kernels take float32 only); their
+.eng lines must agree within MQ_LIMITS, one set per line (its comment
+gives the reasons and the readings of planted faults).
+Then the flagship's fcc Al 63^3 with the analytic EAM: nvt at 0.026 eV
+for 40 steps on the general step (K4/K5 once a step, nothing else), nve
+for 10 more back on the fused loop (K1/K2 once a step, K4/K5 once an
+observe), and the L1_2 lattice as two species with SCALES2's columns
+under ber for 20 steps (K8/K9 once a step); K1/K2/K4/K5 are held against
+their plain versions on the nvt phase's last state and K6-K9 on the
+two-species run's.
+
 Prints one JSON line each for the four main paths (one and two species,
 "split", "ab"), the bench configuration, the two driver runs, the LJ
-driver run, the ablation run, phases 9 and 10, the two restarts and the
-EOS run (atom-steps/s, ms per step, CUDA-event
+driver run, the ablation run, phases 9 and 10, the two restarts, the
+EOS run and the general step's ensembles (atom-steps/s, ms per step, CUDA-event
 phase times with calc_ttm and nrb, calc_ttm by part and its CUDA kernels
 under torch.profiler, ms per FILTER application, the set-up seconds of
 init_nrb and the TMM tables, peak memory, launches), one
@@ -184,7 +206,8 @@ are unspecified; ptxas' registers, spill bytes and static shared memory;
 for the full-stencil rows and K10-K12 the launch tile and its dynamic
 shared memory at the table's shapes; K12's row also its launches by
 capacity and its time at cap 24 and on phase 7's last state; the rows
-of K1-K5 also their launches in phases 8, 9, 10 and 11; B8's
+of K1-K5 also their launches in phases 8, 9, 10 and 11, and those of
+K1, K2, K4, K5, K8, K9 and K12 in phase 12; B8's
 rows carry K4/K5's times), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
@@ -1966,6 +1989,408 @@ def run_lj_driver(dev_name: str, smi: str):
     return report
 
 
+# ---- phase 12: the general step's ensembles --------------------------------
+# examples/melt_quench/melt_quench.imd as written but for these tags: the
+# flagship's 63^3 fcc cells (1,000,188 atoms, phase 7's size), the phases
+# ending at steps 60 / 120 / 200, .eng every 20 steps
+MQ_TAGS = (("box_param 6 6 6", "box_param {cells} {cells} {cells}"),
+           ("eng_int 25", "eng_int 20"), ("maxsteps 1000", "maxsteps 60"),
+           ("maxsteps 2000", "maxsteps 120"),
+           ("maxsteps 3000", "maxsteps 200"))
+MQ_STEPS = (60, 60, 80)
+# the float32-against-float64 copy: 10^3 cells from one .chkpt start with
+# NumPy velocities of 0.2 eV (do_maxwell 0: torch draws Maxwell momenta
+# in the run's dtype, so the two dtypes would start apart)
+MQ_REF_CELLS = 10
+# the phase of each of the copy's .eng lines (steps 20, 40, ..., 200)
+MQ_LINES = ("nvt",) * 3 + ("ber",) * 3 + ("glok",) * 4
+# The limits of that comparison, one set per .eng line: Epot (eV per atom)
+# and pressure absolute, temperature and eta*tau_eta relative.  The two
+# dtypes start from the same state and part as the liquid amplifies
+# float32's rounding: on an H100 the temperature agreed to 8.7e-7 at step
+# 20, 5.5e-6 at 40 and 1.4e-4 at 60, and the glok phase, which heats the
+# quenched liquid, took the gap to 1e-2 by step 200.  Epot and pressure
+# also carry a constant ~4.5e-4 and ~5.4e-4 from the LJ table sampled and
+# fitted in float32.  Each limit sits about 5-50x above that sound reading
+# (2-3x above the constant for Epot and pressure) and below what planted
+# faults read in a float64 copy against the sound float64 run: eta not
+# carried (eta*tau_eta 1.0, temperature 2.0e-4 / 8.5e-4 / 2.0e-3 at steps
+# 20 / 40 / 60), ber reading Ekin 0 (temperature 8.0e-2 at step 80),
+# FIRE's MIX steering lost (temperature 0.29 at step 140, 0.83 at 200).
+_NVT = {"Epot": 1e-3, "pressure": 1.5e-3, "eta*tau_eta": 1e-4}
+_BER = {"Epot": 1e-3, "temperature": 3e-3, "pressure": 1.5e-3}
+MQ_LIMITS = (
+    dict(_NVT, temperature=1e-5), dict(_NVT, temperature=5e-5),
+    dict(_NVT, temperature=7e-4), _BER, _BER, _BER,
+    {"Epot": 2e-3, "temperature": 5e-3, "pressure": 5e-3},
+    {"Epot": 5e-3, "temperature": 3e-2, "pressure": 2e-2},
+    {"Epot": 2e-2, "temperature": 5e-2, "pressure": 6e-2},
+    {"Epot": 8e-2, "temperature": 1e-1, "pressure": 0.4})
+# the EAM paths: nvt at the flagship's 0.026 eV on the general step (K4/K5),
+# nve back on the fused loop (K1/K2); two species (L1_2, the tables scaled
+# by SCALES2) under ber (K8/K9)
+EAM_GEN = """coordname {coord}
+box_param {cells} {cells} {cells}
+box_unit 4.05
+ntypes {nt}
+masses {masses}
+outfiles {out}
+core_potential_file pair.pt
+embedding_energy_file embed.pt
+el_density_file rho.pt
+timestep 0.1
+eng_int 10
+"""
+EAM_NVT_STEPS, EAM_NVE_STEPS, EAM_BER_STEPS = 40, 10, 20
+EAM_NVT = f"""ensemble nvt
+starttemp 0.026
+tau_eta 20.0
+maxsteps {EAM_NVT_STEPS}
+
+simulation 2
+ensemble nve
+maxsteps {EAM_NVT_STEPS + EAM_NVE_STEPS}
+"""
+EAM_BER = f"""ensemble ber
+starttemp 0.026
+tau_berendsen 20.0
+maxsteps {EAM_BER_STEPS}
+"""
+
+
+def melt_quench_text(cells: int, start: str = "") -> str:
+    """examples/melt_quench as written with MQ_TAGS at ``cells`` fcc cells
+    per axis; with ``start`` a .chkpt start without Maxwell momenta."""
+    text = (REPO / "examples" / "melt_quench" / "melt_quench.imd").read_text()
+    for old, new in MQ_TAGS:
+        check(text.count(old) == 1, f"melt_quench.imd holds {old!r} once")
+        text = text.replace(old, new.format(cells=cells))
+    if start:
+        check("coordname _fcc" in text, "melt_quench.imd generates fcc")
+        text = text.replace("coordname _fcc",
+                            f"coordname {start}\ndo_maxwell 0")
+    return text
+
+
+def eng_rows(path: Path):
+    """The .eng's column names and rows (rows of later phases may be
+    narrower: the nvt column belongs to the file's first phase)."""
+    import numpy as np
+    lines = path.read_text().splitlines()
+    return (lines[0].lstrip("# ").split(),
+            [np.array(line.split(), float) for line in lines[1:]])
+
+
+def per_step(run, n_atoms: int, skip_first: bool = True) -> dict:
+    """ms a step and atom-steps/s over a phase's blocks (the first one,
+    with its warm-up, left out where there are more), host syncs and
+    rebins a step."""
+    sim, phase_ms = run[0], run[3]
+    blocks = sim.block_seconds[1:] if skip_first and \
+        len(sim.block_seconds) > 1 else sim.block_seconds
+    steps = sum(b for b, _ in blocks)
+    secs = sum(w for _, w in blocks)
+    c = sim.counters
+    return {"ms_per_step": 1e3 * secs / steps,
+            "atom_steps_per_s": n_atoms * steps / secs,
+            "grid": list(sim.grid.dims), "capacity": sim.grid.capacity,
+            "phase_ms_per_step": {k: v / max(c.steps, 1)
+                                  for k, v in phase_ms.items()},
+            "timed_steps": steps, "blocks": sim.block_seconds,
+            "host_syncs_per_step": c.host_syncs / max(c.steps, 1),
+            "rebins_per_step": c.rebins / max(c.steps, 1),
+            "steps_run": c.steps}
+
+
+def run_phases(par: Path, *args, timer=None):
+    """``python -m imd_tpu_torch -p par`` in process; returns each phase's
+    (Simulation, last state, launches at its end, the ms of its step's
+    phases by ``timer``, a CudaPhaseTimer, or {})."""
+    from imd_tpu_torch import __main__ as cli
+    from imd_tpu_torch import kernels
+    runs = []
+
+    def on_phase(sim, st):
+        ms = {}
+        if timer is not None:
+            ms = timer.totals_ms()
+            timer.reset()
+        runs.append((sim, st, dict(kernels.LAUNCHES), ms))
+
+    rc = cli.main(["-p", str(par), *args], on_phase=on_phase, timer=timer)
+    check(rc == 0, f"{par.name}: rc {rc}")
+    return runs
+
+
+def write_mq_start(tmp: Path) -> None:
+    """The 10^3-cell copy's start: ``start.chkpt`` in ``tmp``, fcc Al with
+    NumPy velocities of 0.2 eV (seed 12)."""
+    import numpy as np
+
+    from imd_tpu_torch.io.chkpt import ChkptData, write_chkpt
+    from imd_tpu_torch.utils.generate import fcc
+
+    pos, _, diag = fcc((MQ_REF_CELLS,) * 3, 4.05)
+    n = len(pos)
+    vel = np.random.default_rng(12).normal(size=pos.shape) \
+        * np.sqrt(0.2 / 26.9815)
+    vel -= vel.mean(0)
+    write_chkpt(str(tmp / "start.chkpt"), ChkptData(
+        number=np.arange(n), type=np.zeros(n, int), mass=np.full(n, 26.9815),
+        pos=pos, vel=vel, data=np.zeros((n, 1)),
+        box_x=np.array([diag[0], 0, 0]), box_y=np.array([0, diag[1], 0]),
+        box_z=np.array([0, 0, diag[2]])), binary=True, double=True)
+
+
+def run_mq_copy(tmp: Path, name: str, *args):
+    """The 10^3-cell copy of melt_quench from ``tmp``'s start.chkpt in
+    ``tmp/name`` with the driver's ``args``: ((columns, .eng rows),
+    seconds)."""
+    sub = tmp / name
+    sub.mkdir()
+    (sub / "start.chkpt").write_bytes((tmp / "start.chkpt").read_bytes())
+    (sub / "mq.imd").write_text(melt_quench_text(MQ_REF_CELLS,
+                                                 "start.chkpt"))
+    t1 = time.perf_counter()
+    run_phases(sub / "mq.imd", *args)
+    return eng_rows(sub / "melt_quench.eng"), time.perf_counter() - t1
+
+
+def compare_mq(cols, r32, r64):
+    """The 10^3 copies' .eng lines against each other under MQ_LIMITS:
+    (the worst reading per phase and column, each line's readings, the
+    readings beyond their limits).  Temperature and eta*tau_eta are
+    relative, Epot (eV per atom) and pressure absolute."""
+    check(len(r32) == len(r64) == len(MQ_LIMITS),
+          "the 10^3 copies' .eng lines")
+    worst, diffs, bad = {}, [], []
+    for k, (a, b) in enumerate(zip(r32, r64)):
+        ens, row = MQ_LINES[k], {}
+        for c, name in enumerate(cols[:len(a)]):
+            lim = MQ_LIMITS[k].get(name)
+            if lim is None:
+                continue
+            d = abs(a[c] - b[c])
+            if name in ("temperature", "eta*tau_eta"):
+                d /= abs(b[c])
+            row[name] = d
+            key = f"{ens} {name}"
+            worst[key] = max(worst.get(key, 0.0), d)
+            if not d <= lim:
+                bad.append(f"line {k} ({ens}) {name}: {a[c]:.9e} against "
+                           f"{b[c]:.9e} (limit {lim})")
+        diffs.append(row)
+    return worst, diffs, bad
+
+
+def run_melt_quench(tmp: Path, smi: str) -> dict:
+    """Phase 12a: melt_quench through the driver at 1,000,188 atoms, then
+    its 10^3-cell copy in float32 on the card against float64 (the plain
+    versions on the host: the kernels take float32 only)."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    cells = LJ_CELLS
+    n_atoms = 4 * cells ** 3
+    par = tmp / "mq.imd"
+    par.write_text(melt_quench_text(cells))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    runs = run_phases(par, timer=CudaPhaseTimer())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sims = [r[0] for r in runs]
+    check([s.ensemble for s in sims] == ["nvt", "ber", "glok"]
+          and [s.step_count for s in sims] == [60, 120, 200],
+          f"melt_quench phases {[(s.ensemble, s.step_count) for s in sims]}")
+    steps_run = sum(s.counters.steps for s in sims)
+    check(steps_run >= sum(MQ_STEPS) and launches["pair_half"] == steps_run,
+          f"melt_quench: K12 launched {launches['pair_half']} times in "
+          f"{steps_run} steps")
+    others = {k: v for k, v in launches.items() if k != "pair_half" and v}
+    check(not others, f"other kernels launched on melt_quench: {others}")
+    state = runs[-1][1]
+    live = state.scene.mask
+    ids = torch.sort(state.scene.id[live]).values.cpu()
+    check(len(ids) == n_atoms and torch.equal(
+        ids, torch.arange(n_atoms, dtype=ids.dtype))
+        and int(state.scene.overflow) == 0, "melt_quench: no atom lost")
+    cols, rows = eng_rows(tmp / "melt_quench.eng")
+    check(cols[-1] == "eta*tau_eta" and [len(r) for r in rows]
+          == [6] * 3 + [5] * 7 and all(np.isfinite(r).all() for r in rows),
+          f"melt_quench .eng: columns {cols}, widths {[len(r) for r in rows]}")
+    check(all(r[5] != 0.0 for r in rows[:3]),
+          "melt_quench .eng: eta*tau_eta is non-zero in phase 1")
+    # the ramp's target at the last step of each block of phase 2:
+    # starttemp + (endtemp - starttemp) * step / maxsteps over the ABSOLUTE
+    # step (ROADMAP C8)
+    ber = sims[1]
+    ends = sims[0].step_count + np.cumsum([b for b, _ in ber.block_seconds])
+    ramp = [[int(e), ber._ramp_temperature(int(e) - 1)] for e in ends]
+    check([e for e, _ in ramp] == [80, 100, 120],
+          f"melt_quench ber block ends {[e for e, _ in ramp]}")
+    for gstep, temp in ramp:
+        want = 0.2 + (0.01 - 0.2) * (gstep - 1) / 120
+        print(f"melt_quench ber block ending at step {gstep}: ramp target "
+              f"{temp:.6f} eV")
+        check(abs(temp - want) <= 1e-12, f"ramp target at step {gstep}")
+    fire = sims[2].fire
+    fire_report = {"timestep": float(fire.timestep), "mix": float(fire.mix),
+                   "glok_int": int(fire.glok_int),
+                   "uphill_events": int(fire.n_pxf),
+                   "relaxed_at": sims[2].relaxed_at}
+    print(f"melt_quench glok: FIRE timestep {fire_report['timestep']:.6f} "
+          f"(start 0.1), {fire_report['uphill_events']} uphill events, mix "
+          f"{fire_report['mix']:.6f}, {fire_report['glok_int']} steps since "
+          f"the last reset, relaxed at {fire_report['relaxed_at']}")
+    # FIRE's timestep shrinks on an uphill event and grows only after one
+    # (min_n_pxf 1): with none, it must still be 0.1 and MIX must have
+    # decayed once a step since the phase's start
+    # (a float32 state: 0.1 to 1e-7)
+    dt_moved = abs(fire_report["timestep"] - 0.1) > 1e-7
+    if fire_report["uphill_events"]:
+        check(dt_moved, "FIRE's timestep changed after its uphill events")
+    else:
+        check(not dt_moved
+              and fire_report["glok_int"] == sims[2].counters.steps
+              and abs(fire_report["mix"] - 0.1 * 0.99 **
+                      fire_report["glok_int"]) <= 1e-6,
+              "FIRE without an uphill event: timestep 0.1, MIX decayed "
+              "once a step")
+    paths = {r[0].ensemble: per_step(r, n_atoms) for r in runs}
+    del runs, sims, state, ber
+    torch.cuda.empty_cache()
+
+    # the 10^3-cell copy, float32 on the card against float64 on the host
+    write_mq_start(tmp)
+    (cols, r32), s32 = run_mq_copy(tmp, "float32")
+    (_, r64), s64 = run_mq_copy(tmp, "float64", "--device", "cpu",
+                                "--dtype", "float64")
+    worst, diffs, bad = compare_mq(cols, r32, r64)
+    for k, row in enumerate(diffs):
+        print(f"melt_quench 10^3 copy, .eng line {k} ({MQ_LINES[k]}), "
+              "float32 on the card against float64 on the host: "
+              + ", ".join(f"{n} {v:.3e}" for n, v in row.items()))
+    check(not bad, f"10^3 copy beyond its limits: {bad}")
+    return {"config": "examples/melt_quench/melt_quench.imd as written "
+                      "(LJ eps 0.35, sigma 2.62, r_cut 5.0; nvt 0.2 eV "
+                      "tau_eta 50, ber 0.2 -> 0.01 eV tau 20, glok) on "
+                      "fcc 63^3 Al, 1,000,188 atoms, phases ending at "
+                      "60/120/200, eng_int 20, float32, general step "
+                      "(B6: 13 views + K12)",
+            "atoms": n_atoms, "wall_s": wall, "paths": paths,
+            "launches": launches, "fire": fire_report,
+            "ramp_targets": ramp, "max_memory_allocated_bytes": peak,
+            "f32_vs_f64_10cells": {"worst": worst, "lines": diffs,
+                                   "limits": MQ_LIMITS,
+                                   "float32_card_s": s32,
+                                   "float64_host_s": s64},
+            "nvidia_smi": smi}
+
+
+def run_eam_general(tmp: Path, smi: str):
+    """Phase 12b: the flagship's fcc Al 63^3 with the analytic EAM under
+    nvt on the general step (K4/K5 once a step), then nve back on the
+    fused loop (K1/K2 once a step), then two species (L1_2) under ber
+    (K8/K9 once a step).  Returns the report and the last states of the
+    nvt phase and of the two-species run (with their Simulations)."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import flagship, kernels
+    from imd_tpu_torch.models.potential import write_pot_table
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    cells = LJ_CELLS
+    n_atoms = 4 * cells ** 3
+    out = {}
+    for nt, body, coord in ((1, EAM_NVT, "_fcc"), (2, EAM_BER, "_l12")):
+        d = tmp / f"eam{nt}"
+        d.mkdir()
+        tabs = flagship.eam_tables(nt, SCALES2 if nt > 1 else None,
+                                   dtype=np.float64)
+        for name in ("pair", "rho", "embed"):
+            write_pot_table(getattr(tabs, name), str(d / f"{name}.pt"))
+        (d / "eam.imd").write_text(EAM_GEN.format(
+            coord=coord, cells=cells, nt=nt, out="eam",
+            masses=" ".join(["26.9815"] * nt)) + body)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs = run_phases(d / "eam.imd", timer=CudaPhaseTimer())
+        torch.cuda.synchronize()
+        out[nt] = (runs, time.perf_counter() - t0,
+                   torch.cuda.max_memory_allocated())
+    (nvt_run, nve_run), wall1, peak1 = out[1]
+    (ber_run,), wall2, peak2 = out[2]
+    sim1, st1, l1, _ = nvt_run
+    sim2, st2, l2, _ = nve_run
+    sim3, st3, l3, _ = ber_run
+    s1, s2, s3 = (s.counters.steps for s in (sim1, sim2, sim3))
+    check(not sim1._fused_eligible() and sim2._fused_eligible()
+          and not sim3._fused_eligible(),
+          "EAM nvt and ber on the general step, nve on the fused loop")
+    check(s1 >= EAM_NVT_STEPS and l1["eam_rho_e"] == s1
+          and l1["eam_force_s"] == s1 and l1["eam_rho"] == 0
+          and l1["eam_force"] == 0,
+          f"EAM nvt: K4/K5 once a general step ({s1} steps): {l1}")
+    n_obs = sim2.n_observe
+    check(l2["eam_rho"] - l1["eam_rho"] == EAM_NVE_STEPS
+          and l2["eam_force"] - l1["eam_force"] == EAM_NVE_STEPS
+          and l2["eam_rho_e"] - l1["eam_rho_e"] == n_obs
+          and l2["eam_force_s"] - l1["eam_force_s"] == n_obs,
+          f"EAM nve after the handover: K1/K2 once a step, K4/K5 once an "
+          f"observe ({n_obs}): {l2}")
+    check(s3 >= EAM_BER_STEPS and l3["eam_rho_e_mt"] == s3
+          and l3["eam_force_s_mt"] == s3 and l3["eam_rho_e"] == 0
+          and l3["eam_rho_mt"] == 0,
+          f"two-species ber: K8/K9 once a general step ({s3}): {l3}")
+    for label, sim, st in (("nvt", sim1, st1), ("nve", sim2, st2),
+                           ("ber", sim3, st3)):
+        live = st.scene.mask
+        ids = torch.sort(st.scene.id[live]).values.cpu()
+        check(len(ids) == n_atoms and torch.equal(
+            ids, torch.arange(n_atoms, dtype=ids.dtype)),
+            f"EAM {label}: no atom lost")
+    for d, nt in ((tmp / "eam1", 1), (tmp / "eam2", 2)):
+        cols, rows = eng_rows(d / "eam.eng")
+        check(all(np.isfinite(r).all() for r in rows) and len(rows) ==
+              (5 if nt == 1 else 2), f"EAM ntypes {nt} .eng {len(rows)}")
+        if nt == 1:
+            check(cols[-1] == "eta*tau_eta" and all(r[5] != 0.0
+                                                    for r in rows[:4]),
+                  "EAM nvt .eng: eta*tau_eta non-zero")
+    typ = st3.scene.type[st3.scene.mask]
+    check(int((typ == 1).sum()) == n_atoms // 4
+          and int((typ == 0).sum()) == 3 * n_atoms // 4,
+          "L1_2: the faces type 0, the corners (a quarter) type 1")
+    report = {
+        "config": "flagship fcc Al 63^3 (1,000,188 atoms), analytic EAM "
+                  "degree-12 fit: nvt 0.026 eV tau_eta 20 for 40 steps "
+                  "(general step, K4/K5), nve 10 steps (fused loop, "
+                  "K1/K2); L1_2 two species (SCALES2 columns) under ber "
+                  "0.026 eV tau 20 for 20 steps (general step, K8/K9); "
+                  "float32",
+        "atoms": n_atoms,
+        "paths": {"eam_nvt_general": per_step(nvt_run, n_atoms),
+                  "eam_nve_fused": per_step(nve_run, n_atoms,
+                                            skip_first=False),
+                  "alloy_ber_general": per_step(ber_run, n_atoms)},
+        "launches": {"nvt": l1, "nve": l2, "ber": l3},
+        "wall_s": {"ntypes1": wall1, "ntypes2": wall2},
+        "max_memory_allocated_bytes": {"ntypes1": peak1, "ntypes2": peak2},
+        "nvidia_smi": smi}
+    return report, (sim1, st1), (sim3, st3)
+
+
 def pair_errors(out_k, out_p, mask, dims) -> dict:
     """K12's outputs against its plain version's, assembled: cutoff flips
     (live slots whose count differs), max |d| / max over live slots of F
@@ -3196,6 +3621,38 @@ def main() -> int:
     eos_report = run_eos(dev_name, smi)
     torch.cuda.empty_cache()
 
+    # ---- 12. the general step's ensembles -------------------------------
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="imd_gen_") as gen_dir:
+        gen_dir = Path(gen_dir)
+        mq = run_melt_quench(gen_dir, smi)
+        torch.cuda.empty_cache()
+        eam_gen, (gsim, gstate), (asim3, astate3) = run_eam_general(gen_dir,
+                                                                    smi)
+    # K4/K5 (with K1/K2) on the nvt phase's last state, K8/K9 (with K6/K7)
+    # on the two-species ber run's, against their plain versions
+    gcl = scene_to_cl(gstate.scene)
+    check_all(gcl.xi, gcl.alive, gsim.eam_run, gsim.grid,
+              f"EAM nvt end, dims {gsim.grid.dims} cap {gsim.grid.capacity}")
+    acl3 = scene_to_cl(astate3.scene)
+    check_all(acl3.xi, acl3.alive, asim3.eam_run, asim3.grid,
+              f"two-species ber end, dims {asim3.grid.dims} cap "
+              f"{asim3.grid.capacity}", acl3.typ, 2)
+    del gcl, acl3, gsim, gstate, asim3, astate3
+    torch.cuda.empty_cache()
+    print(json.dumps({"general_ensembles": {
+        "melt_quench": mq, "eam": eam_gen,
+        "phase_wall_s": time.perf_counter() - t12,
+        "host_threads": torch.get_num_threads(), "device": dev_name,
+        "nvidia_smi": smi}}))
+    gen_launches = {
+        "pair_half": mq["launches"]["pair_half"],
+        **{k: eam_gen["launches"]["nvt"][k]
+           for k in ("eam_rho_e", "eam_force_s")},
+        **{k: eam_gen["launches"]["nve"][k] for k in ("eam_rho", "eam_force")},
+        **{k: eam_gen["launches"]["ber"][k]
+           for k in ("eam_rho_e_mt", "eam_force_s_mt")}}
+
     rows = [("eam_rho", "eam_win.cu", "imd_tpu/ops/forces_win.py:306"),
             ("eam_force", "eam_win.cu", "imd_tpu/ops/forces_win.py:411"),
             ("compact", "rebin_compact.cu", "imd_tpu/ops/rebin_cl.py:66"),
@@ -3256,6 +3713,8 @@ def main() -> int:
                               ("launches_eos", eos_report)):
                 if rep_["launches"].get(n):
                     extra[key] = rep_["launches"][n]
+            if gen_launches.get(n):
+                extra["launches_general_ensembles"] = gen_launches[n]
         out.append({
             "name": n, "route": "cuda", "source": f"imd_tpu_torch/csrc/{src}",
             "replaces": rep, "launches": launches[n], **extra,

@@ -1,21 +1,25 @@
-"""The general step's NVE leapfrog, Maxwell initial momenta and the
+"""The general step's ensembles, Maxwell initial momenta and the
 degree-of-freedom count of the .eng temperature (port of
-imd_tpu/integrate.py:27-63, 94, 126, 144, 718, 797).
+imd_tpu/integrate.py:27-63, 94, 126, 144-200, 718, 797).
 
 ``nve`` is the reference's move_atoms_nve (imd_integrate.c:35): p += dt F,
 x += dt p / m, with the time-centred kinetic energy (p_old^2 + p_new^2) /
-(4 m) for the .eng.  Of ``_apply_force_mods`` only viscous friction is
-ported: the restrictions, FBC, BEND, RIGID and PDECAY refuse to run in the
-driver (simulation.UNPORTED).  The sums of ``StepStats`` are float64
-scalars on the device (imd_tpu sums in the state's dtype), as the fused
-path's observables are.  The fused hot loop does its own leapfrog
-(ops/fused_step.py); the thermostats and relaxation ensembles are ROADMAP
-A9b.
+(4 m) for the .eng.  ``mik``, ``berendsen`` and ``nvt`` are the same
+leapfrog with imd_tpu's discretisations of the microconvergence reset,
+the Berendsen rescale and the Nose-Hoover friction; GLOK is ``nve`` at
+FIRE's timestep followed by relax.fire_update.  Of ``_apply_force_mods``
+only viscous friction is ported: the restrictions, FBC, BEND, RIGID and
+PDECAY refuse to run in the driver (simulation.UNPORTED).  The sums of
+``StepStats`` are float64 scalars on the device (imd_tpu sums in the
+state's dtype), as the fused path's observables are, and every scalar
+of a thermostat stays a 0-d device tensor: no ensemble reads the host.
+The fused hot loop does its own leapfrog (ops/fused_step.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -34,8 +38,12 @@ class StepStats:
 
 @dataclasses.dataclass(eq=False)
 class IntegratorParams:
-    """The per-step knobs that ``nve`` reads."""
+    """The per-step knobs of the ensembles: floats (the timestep also a
+    0-d tensor: FIRE's)."""
     timestep: float
+    temperature: float = 0.0        # k_B T (eV) of nvt and ber
+    isq_tau_eta: float = 0.0        # 1 / tau_eta^2 (nvt)
+    tau_berendsen: float = 0.0      # ber
     viscous_friction: float = 0.0
 
 
@@ -73,6 +81,63 @@ def nve(scene: Scene, params: IntegratorParams):
     F = _apply_force_mods(scene, params)
     p_new = scene.mom + params.timestep * F
     return _finish(scene, params, F, p_new)
+
+
+def mik(scene: Scene, params: IntegratorParams):
+    """Microconvergence relaxation: the leapfrog with p zeroed for each
+    atom whose new momentum points against its force, p.F < 0
+    (integrate.c:831; imd_tpu/integrate.py:159)."""
+    F = _apply_force_mods(scene, params)
+    p_new = scene.mom + params.timestep * F
+    pf = (p_new * F).sum(-1, keepdim=True)
+    p_new = torch.where(pf < 0.0, torch.zeros_like(p_new), p_new)
+    return _finish(scene, params, F, p_new)
+
+
+# the reference's additive epsilon of the Berendsen ratio (~0.1 K)
+BERENDSEN_EPS = 8.6174101569719990e-06
+
+
+def berendsen(scene: Scene, params: IntegratorParams, nactive: float,
+              tot_kin_energy: torch.Tensor):
+    """The leapfrog with the Berendsen rescale of Ju Li's variant
+    (integrate.c:60-68; imd_tpu/integrate.py:168): p' = (p + dt F) cc with
+    cc^2 = 1 - dt / tau ((2 Ekin / nactive + eps) / (T + eps) - 1),
+    clipped to [0.5, 2], where Ekin is the PREVIOUS step's time-centred
+    kinetic energy (``tot_kin_energy``, a device scalar; 0 at a phase's
+    start, as imd_tpu's carry)."""
+    eps = BERENDSEN_EPS
+    # tau 0 rescales by the clip's bound, as the reference's 1 / 0 = inf
+    rate = (params.timestep / params.tau_berendsen if params.tau_berendsen
+            else math.inf)
+    cc = 1.0 - rate * (
+        (2.0 * tot_kin_energy / nactive + eps)
+        / (params.temperature + eps) - 1.0)
+    cc = torch.sqrt(torch.clamp(cc, 0.5, 2.0)).to(scene.mom.dtype)
+    F = _apply_force_mods(scene, params)
+    p_new = (scene.mom + params.timestep * F) * cc
+    return _finish(scene, params, F, p_new)
+
+
+def nvt(scene: Scene, params: IntegratorParams, nactive: float,
+        eta: torch.Tensor):
+    """Nose-Hoover NVT (move_atoms_nvt, integrate.c:1047;
+    imd_tpu/integrate.py:184) with the reference's half-implicit friction:
+    p' = p (1 - dt eta / 2) / (1 + dt eta / 2) + dt F / (1 + dt eta / 2),
+    then eta' = eta + dt isq_tau_eta (T_cur / T - 1) from this step's
+    time-centred kinetic energy.  ``eta`` is a 0-d device tensor; returns
+    (scene', StepStats, eta')."""
+    F = _apply_force_mods(scene, params)
+    dt = params.timestep
+    reib = 0.5 * dt * eta
+    fac1 = ((1.0 - reib) / (1.0 + reib)).to(scene.mom.dtype)
+    fac2 = (dt / (1.0 + reib)).to(scene.mom.dtype)
+    p_new = scene.mom * fac1 + fac2 * F
+    scene2, stats = _finish(scene, params, F, p_new)
+    t_cur = 2.0 * stats.tot_kin_energy / max(nactive, 1.0)
+    eta_new = eta + dt * params.isq_tau_eta * (
+        t_cur / max(float(params.temperature), 1e-30) - 1.0)
+    return scene2, stats, eta_new
 
 
 def maxwell(scene: Scene, temperature: float,

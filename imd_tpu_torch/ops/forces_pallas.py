@@ -72,16 +72,15 @@ from imd_tpu_torch.ops.forces import HALF_OFFSETS
 from imd_tpu_torch.ops.forces_fast import (_from_cl, _roll_cells,
                                            _roll_cells_back, _to_cl,
                                            _wrap_shift_mask_cl)
-from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, _check_cuda_dF,
-                                          _check_cuda_inputs, _horner_g,
-                                          _horner_g2, _horner_v,
+from imd_tpu_torch.ops.forces_win import (_check_cuda_dF, _check_cuda_inputs,
+                                          _horner_g, _horner_g2, _horner_v,
                                           _mt_grad_pairs, _mt_stencil_pairs,
                                           _mt_table, _pair_params,
                                           _params_for,
                                           _poly_consts, _select_cols,
                                           _stencil_pairs, check_mt_tables,
                                           embed_mt)
-from imd_tpu_torch.ops.fused_step import scene_to_cl
+from imd_tpu_torch.ops.fused_step import cl_inputs
 from imd_tpu_torch.phases import no_timer
 from imd_tpu_torch.scene import Scene
 
@@ -275,34 +274,42 @@ def eam_kernels_cl(xi, mask, eam, grid, timer=no_timer):
     return F, epot, rho * maskf, nn * maskf, presstens[:3].sum(), presstens
 
 
-def eam_kernels_cl_mt(xi, typ, mask, eam, grid, ntypes: int):
+def eam_kernels_cl_mt(xi, typ, mask, eam, grid, ntypes: int,
+                      timer=no_timer):
     """Observables EAM for 2..4 species on cells-last views (single
     device): ``eam_kernels_cl`` with ``typ`` [cap,NC] int32 (-1 in dead
     slots, ``mask`` = typ >= 0), the contract of imd_tpu's
-    eam_kernels_cl_mt with every observable on."""
+    eam_kernels_cl_mt with every observable on.  ``timer`` wraps K8
+    (``r_pass``) and the embedding with K9 (``f_pass``)."""
     maskf = mask.to(xi.dtype)
-    rho, nn, e = eam_rho_e_mt(xi, typ, eam, grid, ntypes)
-    emb_v, emb_g = embed_mt(eam, rho, typ, ntypes)
-    dF = 0.5 * emb_g * maskf
-    F, S = eam_force_s_mt(xi, typ, dF, eam, grid, ntypes)
+    with timer("r_pass"):
+        rho, nn, e = eam_rho_e_mt(xi, typ, eam, grid, ntypes)
+    with timer("f_pass"):
+        emb_v, emb_g = embed_mt(eam, rho, typ, ntypes)
+        dF = 0.5 * emb_g * maskf
+        F, S = eam_force_s_mt(xi, typ, dF, eam, grid, ntypes)
     presstens = S.to(torch.float64).sum(dim=(1, 2))
     epot = (e + emb_v) * maskf
     return F, epot, rho * maskf, nn * maskf, presstens[:3].sum(), presstens
 
 
-def compute_eam_forces_pallas_mt(scene: Scene, eam,
-                                 ntypes: int) -> ForceResult:
-    """Scene entry of ``eam_kernels_cl_mt``."""
-    cl = scene_to_cl(scene)
+def compute_eam_forces_pallas_mt(scene: Scene, eam, ntypes: int,
+                                 timer=no_timer) -> ForceResult:
+    """Scene entry of ``eam_kernels_cl_mt`` (K8/K9): the general step's
+    alloy forces (imd_tpu simulation.py:1026-1029)."""
+    xi, typ, alive = cl_inputs(scene)
     return _force_result(eam_kernels_cl_mt(
-        cl.xi, cl.typ, cl.alive, eam, scene.grid, ntypes), scene.grid.dims)
+        xi, typ, alive, eam, scene.grid, ntypes, timer=timer),
+        scene.grid.dims)
 
 
-def compute_eam_forces_pallas(scene: Scene, eam) -> ForceResult:
-    """Scene entry of ``eam_kernels_cl``."""
-    cl = scene_to_cl(scene)
-    return _force_result(eam_kernels_cl(cl.xi, cl.alive, eam, scene.grid),
-                         scene.grid.dims)
+def compute_eam_forces_pallas(scene: Scene, eam,
+                              timer=no_timer) -> ForceResult:
+    """Scene entry of ``eam_kernels_cl`` (K4/K5): the general step's
+    one-species EAM forces (imd_tpu simulation.py:1030-1032)."""
+    xi, _, alive = cl_inputs(scene)
+    return _force_result(eam_kernels_cl(xi, alive, eam, scene.grid,
+                                        timer=timer), scene.grid.dims)
 
 
 def _force_result(out, dims) -> ForceResult:
@@ -332,8 +339,8 @@ def compute_eam_forces_pallas2(scene: Scene, eam, ntypes: int = 1,
         raise NotImplementedError(
             "K4 counts the neighbours within the cutoff; a shorter "
             "neigh_r2 is not ported for compute_eam_forces_pallas2")
-    cl = scene_to_cl(scene)
-    F, epot, rho, nn, _, _ = eam_kernels_cl(cl.xi, cl.alive, eam, scene.grid)
+    xi, _, alive = cl_inputs(scene)
+    F, epot, rho, nn, _, _ = eam_kernels_cl(xi, alive, eam, scene.grid)
     zero = torch.zeros_like(rho)
     return _force_result(
         (F, epot if need_energy else zero, rho,
@@ -376,12 +383,9 @@ def prep_neighbors(scene: Scene, views=None):
     mask [cap,NC]).  ``views``: ``make_neighbor_views`` of the scene's
     grid, made once by a caller that steps (its shifts and validity come
     from the host), else made here."""
-    grid = scene.grid
-    mask = _to_cl(scene.type, grid.dims) >= 0
-    xi = torch.where(mask[:, None, :], _to_cl(scene.pos, grid.dims),
-                     SENTINEL_DEAD).contiguous()
+    xi, _, mask = cl_inputs(scene)
     if views is None:
-        views = make_neighbor_views(grid, xi.dtype, xi.device)
+        views = make_neighbor_views(scene.grid, xi.dtype, xi.device)
     return xi, views(xi), mask
 
 

@@ -75,15 +75,25 @@ class CLState:
         return dataclasses.replace(self, **kw)
 
 
+def cl_inputs(scene: Scene):
+    """The force kernels' inputs of a Scene: cells-last positions (dead
+    slots at SENTINEL_DEAD) and types (-1 where dead), and the live
+    mask."""
+    dims = scene.grid.dims
+    typ = _to_cl(scene.type, dims).contiguous()
+    alive = typ >= 0
+    xi = torch.where(alive[:, None, :], _to_cl(scene.pos, dims),
+                     SENTINEL_DEAD).contiguous()
+    return xi, typ, alive
+
+
 def scene_to_cl(scene: Scene) -> CLState:
     dims = scene.grid.dims
 
     def cl(a):
         return _to_cl(a, dims).contiguous()
 
-    typ = cl(scene.type)
-    alive = typ >= 0
-    xi = torch.where(alive[:, None, :], cl(scene.pos), SENTINEL_DEAD)
+    xi, typ, alive = cl_inputs(scene)
     return CLState(xi=xi, mom=cl(scene.mom),
                    mass=torch.clamp(cl(scene.mass), min=1e-30),
                    alive=alive, typ=typ, vtyp=cl(scene.vtype),

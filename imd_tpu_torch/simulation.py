@@ -1,8 +1,9 @@
 """The param-file driver (port of imd_tpu/simulation.py: ``Simulation``
 for the configurations ``_fused_eligible`` sends to ``run_fused``,
-simulation.py:1791, 2463-3155, and for single-species pair potentials under
-``ensemble nve``, which imd_tpu runs through its general step,
-simulation.py:1304, 2033).
+simulation.py:1791, 2463-3155, and for those it sends to its general step,
+simulation.py:1304, 2033, under ``ensemble nve``, ``nvt``, ``ber`` (with
+the ``endtemp`` ramp), ``mik`` and ``glok``: single-species pair
+potentials, and EAM sets off the fused loop).
 
 A run reads its configuration (``SimConfig``), loads the EAM tables (the
 reference's three files, or one DYNAMO setfl/funcfl file; up to 4 species)
@@ -37,12 +38,19 @@ pre-block state; past ``REGRID_CAPACITY`` slots the grid is first
 re-derived for the current density (``_regrid_scene``).
 
 A pair potential (``potfile``, ``lj_*``/``ljg_*``, ``morse_*``,
-``buck_*``) runs the general step instead (``make_step_fn``, ``run_general``):
-the skin check (one host read a step: eager torch has no ``lax.cond``), the
-device rebin when it fires, B6 (``compute_pair_forces_pallas``: the 13
-views and K12 on the degree-12 fastpoly fit, as imd_tpu's TPU engine runs
-it) and the NVE leapfrog; ``.eng`` takes the step's own sums, as imd_tpu's
-general loop does.
+``buck_*``) runs the general step instead (``make_step_fn``, ``run_general``),
+and so does an EAM set under ``nvt``, ``ber``, ``mik`` or ``glok`` or with
+an ``endtemp`` ramp (``_fused_eligible``): the skin check (one host read a
+step: eager torch has no ``lax.cond``), the device rebin when it fires, the
+forces (pairs: B6, ``compute_pair_forces_pallas``, the 13 views and K12 on
+the degree-12 fastpoly fit, as imd_tpu's TPU engine runs it; EAM: K4/K5,
+``compute_eam_forces_pallas``, or with 2-4 species K8/K9,
+``compute_eam_forces_pallas_mt``, imd_tpu simulation.py:1022-1032) and the
+ensemble's leapfrog (integrate.py; GLOK with relax.fire_update), its
+thermostat's state (eta, FIRE's) carried on the device; ``.eng`` takes the
+step's own sums, as imd_tpu's general loop does, with the Nose-Hoover
+``eta*tau_eta`` column under nvt.  GLOK and MIK stop a phase at the first
+block end where ``check_relaxed`` holds.
 
 The loop over steps is Python (the JAX package's ``fori_loop`` blocks);
 the blocks stay, so output lands on the same steps as imd_tpu's.
@@ -68,7 +76,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from imd_tpu_torch import integrate, units
+from imd_tpu_torch import integrate, relax, units
 from imd_tpu_torch.config import SimConfig
 from imd_tpu_torch.io import ttm_io
 from imd_tpu_torch.io.chkpt import ChkptData, data_column, read_chkpt, \
@@ -96,12 +104,15 @@ from imd_tpu_torch.models.setfl import maybe_read_dynamo
 from imd_tpu_torch.ops.forces import (compute_eam_forces, compute_nbanz,
                                       compute_ordpar, compute_pair_forces)
 from imd_tpu_torch.ops.forces_fast import _from_cl, _to_cl
-from imd_tpu_torch.ops.forces_pallas import (compute_pair_forces_pallas,
+from imd_tpu_torch.ops.forces_pallas import (compute_eam_forces_pallas,
+                                             compute_eam_forces_pallas_mt,
+                                             compute_pair_forces_pallas,
                                              eam_kernels_cl,
-                                             eam_kernels_cl_mt,
+                                             eam_kernels_cl_mt, eam_rho_e,
+                                             eam_rho_e_mt,
                                              make_neighbor_views)
-from imd_tpu_torch.ops.fused_step import (cl_to_scene, make_filter_apply,
-                                          make_fused_step,
+from imd_tpu_torch.ops.fused_step import (cl_inputs, cl_to_scene,
+                                          make_filter_apply, make_fused_step,
                                           make_fused_ttm_step)
 from imd_tpu_torch.ops.geometry import (Box, CellGrid, choose_grid,
                                         measured_capacity, np_dtype,
@@ -128,8 +139,26 @@ _FLAT_INTERACTION_TAGS = (
     "keating_alpha", "keating_beta", "keating_d", "ttbp_constant", "ttbp_sp",
     "ttbp_cut", "meam_e", "meam_a", "dp_alpha", "ms_D")
 
+# the ensembles of the general step (make_step_fn)
+GENERAL_ENSEMBLES = ("nve", "nvt", "ber", "mik", "glok")
+
+
+def _ramped(cfg) -> bool:
+    """An endtemp ramp: the thermostat's target runs from starttemp to
+    endtemp (imd_tpu simulation.py:1297-1302)."""
+    return cfg.endtemp > 0 and cfg.endtemp != cfg.starttemp
+
+
 # the tags of the pair potentials (lj_epsilon also starts ljg_*)
 _PAIR_TAGS = ("potfile", "lj_epsilon", "morse_epsilon", "buck_a")
+
+
+def _general_step(cfg) -> bool:
+    """Whether a phase runs the general step (``_fused_eligible`` false): a
+    pair potential, or an EAM set under a thermostat or relaxation or with
+    an endtemp ramp."""
+    return (_any_set(cfg, _PAIR_TAGS) or _ramped(cfg)
+            or cfg.ensemble not in ("nve", "ttm"))
 
 # (what, predicate, ROADMAP item): settings this port does not run yet
 UNPORTED = (
@@ -148,12 +177,16 @@ UNPORTED = (
      lambda c: _any_set(c, ("eeam_energy_file", "adp_upotfile")), "A9c"),
     ("charges / Ewald (charge, sm_chi_0)",
      lambda c: _any_set(c, ("charge", "sm_chi_0")), "A9c"),
-    ("ensembles other than nve and ttm",
-     lambda c: c.ensemble not in ("nve", "ttm"), "A9b"),
+    ("ensemble cg (cg_relax)", lambda c: c.ensemble == "cg", "A9b"),
+    ("ensembles other than nve, nvt, ber, mik, glok and ttm (lang, and, "
+     "nvx, npt_iso, npt_axial, sllod, frac, ftg, finnis, stm, damp, ...)",
+     lambda c: c.ensemble not in GENERAL_ENSEMBLES + ("ttm", "cg"), "A9c"),
     ("the TTM under ensemble nve",
      lambda c: c.ensemble == "nve" and c.ttm.enabled, "A9c"),
-    ("endtemp ramps", lambda c: c.endtemp > 0 and c.endtemp != c.starttemp,
-     "A9c"),
+    # imd_tpu runs a ramped TTM file on its general step, which carries
+    # the TTM there (ROADMAP C6)
+    ("endtemp ramps under ensemble ttm",
+     lambda c: _ramped(c) and c.ensemble == "ttm", "A9c"),
     ("per-step drivers (getmin/getsaddle, nclones, ep_*, shock_mode, "
      "pdecay, restrictions, fbc_*, zapp, bend, rigid groups, "
      "HOMDEF/DEFORM, spring_rate, epitax, bb_*)",
@@ -166,11 +199,13 @@ UNPORTED = (
      or c.nclones > 1 or any(r > 0 for r in c.epitax_rate), "A9c"),
     ("laser_rescale_mode other than 0 and 4",
      lambda c: c.ttm.enabled and c.laser.rescale_mode not in (0, 4), "A9c"),
-    # the general step carries none of them (imd_tpu's does)
-    ("tmm / nrb_* / filter_* with a pair potential (potfile, lj_*, "
-     "morse_*, buck_*)",
-     lambda c: _any_set(c, _PAIR_TAGS) and (c.tmm.enabled or c.nrb.enabled
-                                            or c.filter.enabled), "A9b"),
+    # the general step carries none of them (imd_tpu's does, under every
+    # ensemble): they run on the fused EAM loop only (ROADMAP C6)
+    ("the TTM (ttmdimx), tmm, fdtd, nrb_* or filter_* on the general step "
+     "(a pair potential; EAM under nvt, ber, mik, glok or an endtemp ramp)",
+     lambda c: _general_step(c) and (
+         c.ttm.enabled or c.tmm.enabled or c.fdtd.enabled
+         or c.nrb.enabled or c.filter.enabled), "A9b"),
     # with fdtd (the 2-D FDTD), colrad or vlatdim on it
     ("3-D TTM (ttmdimy / ttmdimz > 1)",
      lambda c: c.ttm.enabled and (c.ttm.fd_ny > 1 or c.ttm.fd_nz > 1),
@@ -212,19 +247,23 @@ class SimState:
     vstate: Optional[object] = None   # VlatState
     # [gx,gy,gz,cap] int32: the FD cell of each slot's last update_fd
     fdi: Optional[torch.Tensor] = None
+    eta: Optional[float] = None       # the Nose-Hoover eta (nvt)
 
 
 @dataclasses.dataclass(eq=False)
 class StepState:
     """The general step's carry on the device (the fields of imd_tpu's
-    SimState that its nve step reads and writes)."""
+    SimState that its nve, nvt, ber, mik and glok steps read and
+    write)."""
     scene: Scene
     step: int                     # global step (completed iterations)
     epot_total: torch.Tensor      # float64: sum of the last force call's
     virial: torch.Tensor          # epot, its virial and pressure tensor
     presstens: torch.Tensor
-    stats: integrate.StepStats
+    stats: integrate.StepStats    # the last step's (ber reads its Ekin)
     nbl_count: int = 0            # skin-triggered rebins of the run
+    eta: Optional[torch.Tensor] = None          # float64 0-d (nvt)
+    fire: Optional[relax.FireState] = None      # glok
 
 
 def _iv_pair(iv):
@@ -560,12 +599,24 @@ class Simulation:
 
     def _select_integrator(self):
         """The TTM and its physics (simulation.py:700-873): the laser (TMM
-        or FDTD, not both), COLRAD, the virtual lattice."""
+        or FDTD, not both), COLRAD, the virtual lattice; GLOK's FIRE knobs
+        (simulation.py:873-887)."""
         cfg = self.cfg
         self.ensemble = cfg.ensemble
         self.ttm_params = self.eos = self.tmm_params = None
         self.fdtd_params = self.colrad_tab = self.colrad_step = None
         self.colrad_phi = self.vlat_params = self.vlat_state0 = None
+        self.fire_cfg = None
+        if self.ensemble == "glok":
+            R = cfg.relax
+            self.fire_cfg = relax.FireConfig(
+                incfac=R.fire_incfac, decfac=R.fire_decfac,
+                mix0=R.fire_mix, mixdec=R.fire_mixdec,
+                minsteps=R.fire_minsteps,
+                max_timestep=(R.fire_maxtimestep * cfg.timestep
+                              if R.fire_maxtimestep > 0 else 0.0),
+                ekin_threshold=(R.glok_ekin_threshold
+                                if R.glok_ekin_threshold > 0 else 1e30))
         if self.ensemble != "ttm":
             return
         cfg.ttm.enabled = True
@@ -776,12 +827,22 @@ class Simulation:
 
     # -- the run --------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> SimState:
-        """The fused loop for EAM sets, the general step for a pair
-        potential (one species under ensemble nve: UNPORTED refuses the
-        rest), as imd_tpu's run() dispatches (simulation.py:2046)."""
-        if self.pair_run is not None:
-            return self.run_general(steps)
-        return self.run_fused(steps)
+        """The fused loop where ``_fused_eligible`` holds, else the general
+        step (a pair potential; an EAM set under a thermostat, under
+        relaxation or with a ramp), as imd_tpu's run() dispatches
+        (simulation.py:2046)."""
+        if self._fused_eligible():
+            return self.run_fused(steps)
+        return self.run_general(steps)
+
+    def _fused_eligible(self) -> bool:
+        """imd_tpu's _fused_eligible (simulation.py:1791-1848) as far as
+        the port's settings reach: an EAM set under ``ensemble nve`` or
+        ``ttm`` without an endtemp ramp.  Its other reasons to leave the
+        fused loop are settings that UNPORTED refuses, and ``filter_int
+        0``, which stays here with FILTER off (ROADMAP C6).  imd_tpu's
+        capacity-32 engine rule is left out (ROADMAP C4)."""
+        return self.eam_run is not None and not _general_step(self.cfg)
 
     def _filter_int(self) -> int:
         """FILTER's cadence; 0 (off) also for ``filter_int 0``, which
@@ -1019,17 +1080,50 @@ class Simulation:
         self.scene = template
         return template, grow_tries, regrid_at
 
-    # -- the general step (pair potentials, ensemble nve) ---------------
-    def make_step_fn(self):
-        """The general step as imd_tpu's make_step_fn runs it for nve
-        without the TTM (simulation.py:1327-1371, 1505-1507): the skin
-        check (one host read), the rebin when it fires, B6, the NVE
-        leapfrog.  Returns step(StepState) -> StepState."""
+    # -- the general step (pair potentials; EAM off the fused loop) -----
+    def _ramp_temperature(self, step: int) -> float:
+        """The thermostat's target at global ``step`` (simulation.py:
+        1297-1302): from starttemp to endtemp over the ABSOLUTE step /
+        maxsteps, as imd_tpu writes it, so a later phase's ramp starts
+        part way (ROADMAP C8); else starttemp."""
         cfg = self.cfg
-        params = integrate.IntegratorParams(
-            timestep=cfg.timestep, viscous_friction=cfg.viscous_friction)
-        timer, counters, pot = self.timer, self.counters, self.pair_run
-        views = make_neighbor_views(self.grid, self.dtype, self.device)
+        if _ramped(cfg) and cfg.maxsteps > 0:
+            frac = min(max(step / cfg.maxsteps, 0.0), 1.0)
+            return cfg.starttemp + (cfg.endtemp - cfg.starttemp) * frac
+        return max(cfg.starttemp, 0.0)
+
+    def _force_fn(self):
+        """The general step's force call (simulation.py:1022-1036): B6
+        (the 13 views and K12) for a pair potential, K4/K5 for one EAM
+        species, K8/K9 for 2-4."""
+        timer, nt = self.timer, self.cfg.ntypes
+        if self.pair_run is not None:
+            pot = self.pair_run
+            views = make_neighbor_views(self.grid, self.dtype, self.device)
+            return lambda sc: compute_pair_forces_pallas(
+                sc, pot, timer=timer, views=views)
+        eam = self.eam_run
+        if nt > 1:
+            return lambda sc: compute_eam_forces_pallas_mt(sc, eam, nt,
+                                                           timer=timer)
+        return lambda sc: compute_eam_forces_pallas(sc, eam, timer=timer)
+
+    def make_step_fn(self):
+        """The general step as imd_tpu's make_step_fn runs it without the
+        TTM (simulation.py:1327-1371, 1495-1514): the skin check (one host
+        read), the rebin when it fires, the forces, the ensemble's
+        leapfrog: nve, nvt (eta carried), ber (the carried Ekin), mik, or
+        glok (nve at FIRE's timestep, then fire_update).  Returns
+        step(StepState) -> StepState."""
+        cfg = self.cfg
+        ens = self.ensemble
+        base = integrate.IntegratorParams(
+            timestep=cfg.timestep, isq_tau_eta=cfg.isq_tau_eta,
+            tau_berendsen=cfg.tau_berendsen,
+            viscous_friction=cfg.viscous_friction)
+        nactive = integrate.count_active_dof(self.scene)
+        timer, counters = self.timer, self.counters
+        forces = self._force_fn()
 
         def step_fn(st: StepState) -> StepState:
             scene = st.scene
@@ -1040,47 +1134,87 @@ class Simulation:
                 with timer("rebin"):
                     scene = rebin(scene)
                 counters.rebins += 1
-            res = compute_pair_forces_pallas(scene, pot, timer=timer,
-                                             views=views)
+            res = forces(scene)
             scene = scene.replace(force=res.force, epot=res.epot)
+            params = dataclasses.replace(
+                base, temperature=self._ramp_temperature(st.step))
+            eta, fire = st.eta, st.fire
             with timer("integrate"):
-                scene, stats = integrate.nve(scene, params)
+                if ens == "glok":
+                    scene, stats = integrate.nve(scene, dataclasses.replace(
+                        params, timestep=fire.timestep))
+                    scene, fire = relax.fire_update(scene, stats, fire,
+                                                    self.fire_cfg, nactive)
+                elif ens == "mik":
+                    scene, stats = integrate.mik(scene, params)
+                elif ens == "ber":
+                    scene, stats = integrate.berendsen(
+                        scene, params, nactive, st.stats.tot_kin_energy)
+                elif ens == "nvt":
+                    scene, stats, eta = integrate.nvt(scene, params,
+                                                      nactive, eta)
+                else:
+                    scene, stats = integrate.nve(scene, params)
             counters.steps += 1
             return StepState(scene=scene, step=st.step + 1,
                              epot_total=res.epot.to(torch.float64).sum(),
                              virial=res.virial, presstens=res.presstens,
-                             stats=stats, nbl_count=st.nbl_count + do_it)
+                             stats=stats, nbl_count=st.nbl_count + do_it,
+                             eta=eta, fire=fire)
 
         return step_fn
 
     def init_state(self) -> StepState:
-        """The general step's start (simulation.py:1670, no TTM)."""
+        """The general step's start (simulation.py:1670, no TTM): zero
+        sums (so ber's first rescale reads Ekin 0), eta from the ``eta``
+        tag (a ``-r`` restart too: the .itr holds none), FIRE afresh
+        (simulation.py:1744-1747)."""
         z = torch.zeros((), dtype=torch.float64, device=self.device)
+        fire = None
+        if self.ensemble == "glok":
+            fire = relax.fire_init(self.cfg.timestep, self.fire_cfg,
+                                   self.dtype, self.device)
         return StepState(
             scene=self.scene, step=self.step_count, epot_total=z, virial=z,
             presstens=torch.zeros(6, dtype=torch.float64, device=self.device),
             stats=integrate.StepStats(tot_kin_energy=z, fnorm=z, pnorm=z,
-                                      pxf=z, ekin_new=z))
+                                      pxf=z, ekin_new=z),
+            eta=torch.full((), self.cfg.eta, dtype=torch.float64,
+                           device=self.device), fire=fire)
 
     def _sim_state(self, st: StepState) -> SimState:
         """The output record of a general-step carry: one host read."""
         vals = torch.cat([st.epot_total[None], st.stats.tot_kin_energy[None],
-                          st.virial[None], st.presstens]).tolist()
+                          st.virial[None], st.eta.double()[None],
+                          st.presstens]).tolist()
         return SimState(scene=st.scene, step=st.step, epot_total=vals[0],
                         ekin=vals[1], virial=vals[2],
-                        presstens=np.asarray(vals[3:]), rho=None)
+                        presstens=np.asarray(vals[4:]), rho=None,
+                        eta=vals[3])
+
+    def _relax_check(self) -> bool:
+        """GLOK and MIK stop at convergence when a threshold is set
+        (simulation.py:2386-2400)."""
+        R = self.cfg.relax
+        return self.ensemble in ("glok", "mik") and (
+            R.fnorm_threshold > 0 or R.ekin_threshold > 0
+            or R.delta_epot_threshold > 0)
 
     def run_general(self, steps: Optional[int] = None) -> SimState:
         """The general loop with periodic I/O (simulation.py:2033-2461 as
-        far as nve without the TTM reaches): blocks that end on the next
-        ``eng_int``/``checkpt_int`` step, .eng from the step's sums,
-        .chkpt/.itr, the stop/write files and maxwalltime; a block whose
-        rebin overflowed the capacity is retried from its start after
-        ``_overflow_retry``."""
+        far as the port's ensembles without the TTM reach): blocks that end
+        on the next output step, .eng from the step's sums, .chkpt/.itr,
+        the interval outputs, ``check_relaxed`` at every block end under
+        glok/mik (``# relaxed at step N`` ends the phase), the stop/write
+        files and maxwalltime; a block whose rebin overflowed the capacity
+        is retried from its start after ``_overflow_retry``.  Keeps FIRE's
+        last state (``fire``) and the relaxed-at step (``relaxed_at``)."""
         cfg = self.cfg
         steps = self._steps_to_run(steps)
         sel = self._make_select()
-        intervals = [i for i in (cfg.eng_int, cfg.checkpt_int)
+        # ttm_int sets block ends here even without the TTM, as in
+        # imd_tpu (simulation.py:2060-2064): check_relaxed runs there
+        intervals = [i for i in (cfg.eng_int, cfg.checkpt_int, cfg.ttm_int)
                      + self._output_intervals()
                      if i > 0] + (sel.intervals() if sel else [])
         specials = sel.special_steps() if sel else ()
@@ -1092,6 +1226,10 @@ class Simulation:
         self._open_eng()
         if sel is not None:
             sel.init_refs(self.scene, self.step_count)
+        relax_check = self._relax_check()
+        R = cfg.relax
+        epot_prev = None
+        self.relaxed_at = None
         done = 0
         state = None
         grow_tries = 0
@@ -1115,23 +1253,35 @@ class Simulation:
             done += b
             gstep = st.step
             control = self._control_files()
-            if not (any(_iv_due(gstep, i) for i in intervals)
+            if (any(_iv_due(gstep, i) for i in intervals)
                     or gstep in specials or any(control) or done >= steps):
-                continue
-            state = self._sim_state(st)
-            with self.timers.section("io"):
-                if _iv_due(gstep, cfg.eng_int):
-                    self._write_eng(state, nactive)
-                if _iv_due(gstep, cfg.checkpt_int):
-                    self.write_checkpoint(state, gstep // cfg.checkpt_int)
-                self._write_outputs(state, gstep, sel)
-                if self._obey_control(state, gstep, *control):
+                state = self._sim_state(st)
+                with self.timers.section("io"):
+                    if _iv_due(gstep, cfg.eng_int):
+                        self._write_eng(state, nactive)
+                    if _iv_due(gstep, cfg.checkpt_int):
+                        self.write_checkpoint(state,
+                                              gstep // cfg.checkpt_int)
+                    self._write_outputs(state, gstep, sel)
+            if relax_check:
+                # quasistatic convergence (check_relaxed, main_3d.c:1787)
+                ep_now = float(st.epot_total)
+                if epot_prev is not None and bool(relax.check_relaxed(
+                        st.stats, ep_now, epot_prev, nactive,
+                        R.fnorm_threshold, R.ekin_threshold,
+                        R.delta_epot_threshold)):
+                    print(f"# relaxed at step {gstep}", flush=True)
+                    self.relaxed_at = gstep
                     break
-        if state is None:
+                epot_prev = ep_now
+            if any(control) and self._obey_control(state, gstep, *control):
+                break
+        if state is None or state.step != st.step:
             state = self._sim_state(st)
         self.scene = state.scene
         self.step_count = state.step
         self.nbl_count = st.nbl_count
+        self.fire = st.fire
         self.timers.stop("total")
         n = max(n_atoms(state.scene), 1)
         print(self.timers.report(n_atoms=n, n_steps=max(done, 1)),
@@ -1176,11 +1326,13 @@ class Simulation:
 
     def _open_eng(self):
         """The .eng writer of the run (later phases append), with the
-        RELAXINFO columns when ``relaxinfo`` is set."""
+        Nose-Hoover column under nvt and the RELAXINFO columns when
+        ``relaxinfo`` is set (simulation.py:2110-2114)."""
         cfg = self.cfg
         if cfg.eng_int > 0 and self.eng is None:
             self.eng = EngWriter(
-                self._path(cfg.outfiles + ".eng"), ttm=cfg.ttm.enabled,
+                self._path(cfg.outfiles + ".eng"),
+                nvt=(self.ensemble == "nvt"), ttm=cfg.ttm.enabled,
                 extra_cols=(("delta_epot", "xnorm", "xmax")
                             if cfg.relaxinfo else ()),
                 append=cfg.simulation_phase > 1)
@@ -1347,7 +1499,9 @@ class Simulation:
             epot_per_atom=state.epot_total / n,
             temperature=2.0 * state.ekin / max(nactive, 1.0),
             pressure=(2.0 * state.ekin + state.virial) / (3.0 * vol),
-            volume=vol, ttm_eng=ttm_eng, extra=extra)
+            volume=vol,
+            eta=(state.eta * self.cfg.tau_eta if self.ensemble == "nvt"
+                 else None), ttm_eng=ttm_eng, extra=extra)
 
     def _write_laser_log(self, state: SimState, gstep: int):
         """The .laser log line (simulation.py:3182; the reference's
@@ -1417,8 +1571,20 @@ class Simulation:
             eref[np.isnan(eref)] = epot[np.isnan(eref)]
             data = np.concatenate([data, oref, eref[:, None]], axis=1)
             columns += "x_ref y_ref z_ref Epot_ref".split()
-        if state.rho is not None and not cfg.norhoh:
-            rho = state.rho.reshape(-1).detach().cpu().numpy()[m]
+        rho = state.rho
+        if rho is None and self.eam is not None and not cfg.norhoh:
+            # the general step keeps no density: K4 (K8) on the state, as
+            # imd_tpu recomputes it (simulation.py:3083-3091)
+            xi, typ, alive = cl_inputs(state.scene)
+            if cfg.ntypes > 1:
+                rho = eam_rho_e_mt(xi, typ, self.eam_run, state.scene.grid,
+                                   cfg.ntypes)[0]
+            else:
+                rho = eam_rho_e(xi, alive, self.eam_run,
+                                state.scene.grid)[0]
+            rho = _from_cl(rho, state.scene.grid.dims)
+        if rho is not None and not cfg.norhoh:
+            rho = rho.reshape(-1).detach().cpu().numpy()[m]
             data = np.concatenate([data, rho[:, None]], axis=1)
             columns.append("eam_rho")
         if self._ordpar_active():

@@ -410,7 +410,7 @@ UNPORTED = {
                      "0.4\nlj_sigma 2.62 2.5 2.7\n", "A9b"),
     "pair_ttm": ("ensemble ttm\nlj_epsilon 0.35\nlj_sigma 2.62\n", "A9b"),
     "stiweb": ("stiweb_a 1.0\n", "A9"),
-    "ensemble_nvt": ("ensemble nvt\n", "A9"),
+    "ensemble_lang": ("ensemble lang\n", "A9c"),
     "shock": ("shock_mode 1\n", "A9"),
     # the flagship physics runs on the fused EAM loop; the general step
     # of a pair potential carries none of it
@@ -420,6 +420,13 @@ UNPORTED = {
             "A9b"),
     "filter": ("lj_epsilon 0.35\nlj_sigma 2.62\nfilter_int 4\n"
                "filter_min_x 1.0\n", "A9b"),
+    # nor does an EAM set's general step (a thermostat, a ramp)
+    "eam_nvt_nrb": ("ensemble nvt\nnrb_alat 4.05\nnrb_k 5.0\n", "A9b"),
+    "eam_ber_filter": ("ensemble ber\nfilter_int 4\nfilter_min_x 1.0\n",
+                       "A9b"),
+    "eam_ramp_nrb": ("starttemp 0.1\nendtemp 0.01\nnrb_alat 4.05\n"
+                     "nrb_k 5.0\n", "A9b"),
+    "eam_nvt_ttm": ("ensemble nvt\nttmdimx 4\ninit_t_el 0.03\n", "A9b"),
     # the virtual lattice, COLRAD and the (2-D) FDTD on the 3-D TTM
     "vlattice": ("ensemble ttm\nvlatdim 4\nttmdimy 2\n", "A7"),
     "colrad_3d": ("ensemble ttm\ncolrad\nttmdimz 2\n", "A7"),
