@@ -191,10 +191,33 @@ under ber for 20 steps (K8/K9 once a step); K1/K2/K4/K5 are held against
 their plain versions on the nvt phase's last state and K6-K9 on the
 two-species run's.
 
+Phase 13 runs multi-species pairs and ``ensemble cg`` through ``cli.main``,
+launch counts set to 0 just before each file: examples/binary_lj (the
+binary Lennard-Jones with the Kob-Andersen ratios on the L1_2 lattice at
+3.705 A) on the flagship's 63^3 cells (1,000,188 atoms), its phases ending
+at steps 60 / 120 / 200 and .eng every 20 (BIN_TAGS): nvt, ber with the
+endtemp ramp, cg (80 iterations).  K12-mt (``pair_half_mt``) must launch
+once per step, twice per cg iteration and twice more per cg block, and no
+other kernel (the single-species K12 not at all); no atom may be lost and
+each keeps its type; the cg lines of the .eng have temperature and
+pressure 0 and an energy that falls from block to block.  K12-mt is held
+against its plain version on the run's last state (``k12mt_check``: no
+cutoff flip, F and the stress sums to 1e-4 and e to 1e-5 of their maxima,
+the pressure tensor to 1e-4; the same bits twice) and timed there.  A
+10^3-cell copy from one .chkpt start runs in float32 on the card and in
+float64 on the host; their .eng lines must agree within BIN_LIMITS, one
+set per line (its comment gives the readings of planted faults).  Then
+``ensemble cg`` on the flagship's fcc Al 63^3 with the analytic EAM,
+displaced by 0.05 A from a seed, for 40 iterations: K4/K5 twice an
+iteration and twice a block, nothing else, and the energy at every
+iteration (recorded from the driver's ``relax.cg_relax`` calls) must fall,
+within the float32 rounding of the summed energy (``run_eam_cg``).
+
 Prints one JSON line each for the four main paths (one and two species,
 "split", "ab"), the bench configuration, the two driver runs, the LJ
 driver run, the ablation run, phases 9 and 10, the two restarts, the
-EOS run and the general step's ensembles (atom-steps/s, ms per step, CUDA-event
+EOS run, the general step's ensembles and phase 13's runs (atom-steps/s,
+ms per step, CUDA-event
 phase times with calc_ttm and nrb, calc_ttm by part and its CUDA kernels
 under torch.profiler, ms per FILTER application, the set-up seconds of
 init_nrb and the TMM tables, peak memory, launches), one
@@ -207,7 +230,8 @@ for the full-stencil rows and K10-K12 the launch tile and its dynamic
 shared memory at the table's shapes; K12's row also its launches by
 capacity and its time at cap 24 and on phase 7's last state; the rows
 of K1-K5 also their launches in phases 8, 9, 10 and 11, and those of
-K1, K2, K4, K5, K8, K9 and K12 in phase 12; B8's
+K1, K2, K4, K5, K8, K9 and K12 in phase 12, K4 and K5 in phase 13's EAM
+cg; K12-mt's row its time and bound on phase 13's last state; B8's
 rows carry K4/K5's times), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without a CUDA device.
@@ -253,6 +277,8 @@ FLOPS_PER_PAIR = {
     # with the j side's differences (3 + 6), six stress products and sums,
     # the two energy sums
     "pair_half": _DIST + _HV + _HG + 3 + 3 + 6 + 12 + 2,
+    # K12-mt: K12 and the row index t_i * nt + t_j
+    "pair_half_mt": _DIST + _HV + _HG + 3 + 3 + 6 + 12 + 2 + 2,
 }
 # a pair of unlike types reads two different density columns (source j at
 # host i, source i at host j): one more density Horner than a like pair
@@ -346,10 +372,13 @@ def roofline(flops: float, nbytes: float) -> dict:
 # cell: the position and K11's dF in; the i-sums of a slot and the
 # j-partials of an entry out (K10: rho, nn; K11: fx, fy, fz; K12 as the
 # general step calls it: fx, fy, fz, e and, on the i side, the six stress
-# sums)
+# sums; K12-mt as K12 with the type of each slot in: typ [cap, NC] is its
+# one type input, read once a slot, since the kernel gathers a view entry's
+# type from typ at the neighbour cell and no type views exist)
 HALF_BYTES = {"eam_rho_half": (12 + 2 * 4, 12 + 2 * 4, 2 * 4),
               "eam_force_half": (12 + 4 + 3 * 4, 12 + 4 + 3 * 4, 3 * 4),
-              "pair_half": (12 + 4 * 4 + 6 * 4, 12 + 4 * 4, 4 * 4)}
+              "pair_half": (12 + 4 * 4 + 6 * 4, 12 + 4 * 4, 4 * 4),
+              "pair_half_mt": (12 + 4 + 4 * 4 + 6 * 4, 12 + 4 * 4, 4 * 4)}
 
 
 def half_bytes(name: str, xi, nbr) -> int:
@@ -2156,18 +2185,19 @@ def run_mq_copy(tmp: Path, name: str, *args):
     return eng_rows(sub / "melt_quench.eng"), time.perf_counter() - t1
 
 
-def compare_mq(cols, r32, r64):
-    """The 10^3 copies' .eng lines against each other under MQ_LIMITS:
-    (the worst reading per phase and column, each line's readings, the
-    readings beyond their limits).  Temperature and eta*tau_eta are
-    relative, Epot (eV per atom) and pressure absolute."""
-    check(len(r32) == len(r64) == len(MQ_LIMITS),
+def compare_mq(cols, r32, r64, limits=MQ_LIMITS, lines=MQ_LINES):
+    """The 10^3 copies' .eng lines against each other under ``limits``
+    (MQ_LIMITS; phase 13's BIN_LIMITS), one set per line of the phases
+    ``lines``: (the worst reading per phase and column, each line's
+    readings, the readings beyond their limits).  Temperature and
+    eta*tau_eta are relative, Epot (eV per atom) and pressure absolute."""
+    check(len(r32) == len(r64) == len(limits),
           "the 10^3 copies' .eng lines")
     worst, diffs, bad = {}, [], []
     for k, (a, b) in enumerate(zip(r32, r64)):
-        ens, row = MQ_LINES[k], {}
+        ens, row = lines[k], {}
         for c, name in enumerate(cols[:len(a)]):
-            lim = MQ_LIMITS[k].get(name)
+            lim = limits[k].get(name)
             if lim is None:
                 continue
             d = abs(a[c] - b[c])
@@ -2391,6 +2421,376 @@ def run_eam_general(tmp: Path, smi: str):
     return report, (sim1, st1), (sim3, st3)
 
 
+# ---- phase 13: multi-species pairs (K12-mt) and ensemble cg ----------------
+# examples/binary_lj/binary_lj.imd as written but for these tags: the
+# flagship's 63^3 cells (L1_2 at 3.705 A: 1,000,188 atoms, 75% A), the
+# phases ending at steps 60 / 120 / 200 (nvt, ber with the ramp, cg: 80
+# iterations), .eng every 20, no interval checkpoint
+BIN_TAGS = (("box_param 8 8 8", "box_param {cells} {cells} {cells}"),
+            ("eng_int 25", "eng_int 20"), ("checkpt_int 1000", "checkpt_int 0"),
+            ("maxsteps 1000", "maxsteps 60"), ("maxsteps 2000", "maxsteps 120"),
+            ("maxsteps 3000", "maxsteps 200"))
+BIN_STEPS = (60, 60, 80)
+# the float32-against-float64 copy: 10^3 L1_2 cells (4,000 atoms) from one
+# .chkpt start with NumPy velocities of 0.2 eV
+BIN_REF_CELLS = 10
+BIN_LINES = ("nvt",) * 3 + ("ber",) * 3 + ("cg",) * 4
+# The limits of that comparison, one set per .eng line (Epot in eV per
+# atom and pressure absolute, temperature and eta*tau_eta relative; the cg
+# lines hold Epot only, their temperature and pressure are 0).  The binary
+# melt starts far from its equilibrium (the A-B bonds stretched to 1.25
+# sigma_AB) and parts the two dtypes fast, and by how much depends on the
+# order of the float32 sums.  Three sound readings (float32 against
+# float64 on the CPU, with K12-mt's plain version summing densely and by
+# lists, and on an H100 against the host): step 20 Epot 8.2e-5, T 5.1e-4,
+# P 1.8e-3, eta*tau_eta 1.3e-4 in all three; steps 40 / 60 Epot <= 5.6e-3
+# / 1.1e-2, T <= 6.1e-3 / 1.5e-2, P <= 2.2e-2 / 1.9e-2, eta*tau_eta <=
+# 2.0e-3 / 6.0e-3; the ber lines Epot <= 2.8e-2, T <= 4.8e-2, P <= 0.117;
+# the cg lines Epot <= 1.65e-2.  Planted faults in a float64 copy against
+# the sound float64 run: eta not carried (eta*tau_eta 1.0 on every nvt
+# line; T 9.2e-5 / 3.8e-3 / 3.8e-2, Epot up to 2.8e-2: within the sound
+# scatter), ber reading Ekin 0 (steps 80 / 100 / 120: Epot 0.235 / 0.623 /
+# 1.17, T 0.376 / 1.07 / 3.10, P 0.122 / 0.155 / 0.182, within the sound
+# scatter of P; the cg lines Epot >= 0.405), the Polak-Ribiere beta lost
+# (the cg lines Epot 7.5e-2 / 6.8e-2 / 6.0e-2 / 5.2e-2).  A line search
+# without its max_move clamp reads 0 on every line: the clamp never binds
+# in this run (tests/test_torch_cg.py holds cg_relax at 1e-12).  So eta
+# is held by its own column, ber by Epot and T, cg by Epot (1.8x above
+# the worst sound reading, 1.7x below the lost beta); the ber lines'
+# pressure limit catches gross errors only.
+_BIN_NVT = {"pressure": 0.1, "eta*tau_eta": 5e-2}
+_BIN_BER = {"Epot": 0.1, "pressure": 0.3}
+_BIN_CG = {"Epot": 3e-2}
+BIN_LIMITS = (
+    {"Epot": 1e-3, "temperature": 5e-3, "pressure": 2e-2,
+     "eta*tau_eta": 2e-2},
+    dict(_BIN_NVT, Epot=3e-2, temperature=3e-2),
+    dict(_BIN_NVT, Epot=5e-2, temperature=5e-2),
+    dict(_BIN_BER, temperature=0.15), dict(_BIN_BER, temperature=0.3),
+    dict(_BIN_BER, temperature=0.5), _BIN_CG, _BIN_CG, _BIN_CG, _BIN_CG)
+# cg on the flagship's EAM lattice: fcc Al 63^3 with seeded displacements
+EAM_CG_ITERS = 40
+EAM_CG_SHIFT = 0.05
+
+
+def binary_text(cells: int, start: str = "") -> str:
+    """examples/binary_lj as written with BIN_TAGS at ``cells`` L1_2 cells
+    per axis; with ``start`` a .chkpt start without Maxwell momenta."""
+    text = (REPO / "examples" / "binary_lj" / "binary_lj.imd").read_text()
+    for old, new in BIN_TAGS:
+        check(text.count(old) == 1, f"binary_lj.imd holds {old!r} once")
+        text = text.replace(old, new.format(cells=cells))
+    if start:
+        check("coordname _l12" in text, "binary_lj.imd generates L1_2")
+        text = text.replace("coordname _l12",
+                            f"coordname {start}\ndo_maxwell 0")
+    return text
+
+
+def write_bin_start(tmp: Path) -> None:
+    """The 10^3-cell copy's start: ``start.chkpt`` in ``tmp``, the L1_2
+    lattice at 3.705 A with NumPy velocities of 0.2 eV (seed 13)."""
+    import numpy as np
+
+    from imd_tpu_torch.io.chkpt import ChkptData, write_chkpt
+    from imd_tpu_torch.utils.generate import l12
+
+    pos, typ, diag = l12((BIN_REF_CELLS,) * 3, 3.705)
+    n = len(pos)
+    vel = np.random.default_rng(13).normal(size=pos.shape) \
+        * np.sqrt(0.2 / 26.9815)
+    vel -= vel.mean(0)
+    write_chkpt(str(tmp / "start.chkpt"), ChkptData(
+        number=np.arange(n), type=np.asarray(typ), mass=np.full(n, 26.9815),
+        pos=pos, vel=vel, data=np.zeros((n, 1)),
+        box_x=np.array([diag[0], 0, 0]), box_y=np.array([0, diag[1], 0]),
+        box_z=np.array([0, 0, diag[2]])), binary=True, double=True)
+
+
+def run_bin_copy(tmp: Path, name: str, *args):
+    """The 10^3-cell copy of the binary LJ from ``tmp``'s start.chkpt in
+    ``tmp/name`` with the driver's ``args``: ((columns, .eng rows),
+    seconds)."""
+    sub = tmp / name
+    sub.mkdir()
+    (sub / "start.chkpt").write_bytes((tmp / "start.chkpt").read_bytes())
+    (sub / "bin.imd").write_text(binary_text(BIN_REF_CELLS, "start.chkpt"))
+    t1 = time.perf_counter()
+    run_phases(sub / "bin.imd", *args)
+    return eng_rows(sub / "binary_lj.eng"), time.perf_counter() - t1
+
+
+def k12mt_check(sim, state, label: str, nt: int = 2) -> dict:
+    """K12-mt against its plain version on ``state`` (not counted):
+    pair_errors' readings, the same bits twice, and the times and bound
+    of the call as the general step makes it (energy and stress)."""
+    import torch
+
+    from imd_tpu_torch.ops import forces_pallas as b4
+
+    from imd_tpu_torch import kernels
+
+    # K12's limits: the kernel and its plain version add the same float32
+    # terms in other orders (read on an H100: F 1.2e-7, e 2.0e-7, S 9.5e-8,
+    # the pressure tensor 4.8e-10, no flip), so the limits sit ~500x above
+    # them, and far below what column 0 for every pair reads (the planted
+    # C3 fault, run on the CPU against this check: F 0.42, e 0.31, S 0.46,
+    # the pressure tensor 0.092)
+    grid, pot = sim.grid, sim.pair_run
+    xi, nbr, mask, typ = b4._prep(state.scene)
+    out_k = b4.pair_half_mt(xi, nbr, typ, pot, grid, nt, True)
+    out_p = b4.pair_half_mt_plain(xi, nbr, typ, pot, grid, nt, True)
+    err = pair_errors(out_k, out_p, mask, grid.dims)
+    print(f"K12-mt on {label}: {err}")
+    check(err["flips"] == 0 and err["F"] <= 1e-4 and err["e"] <= 1e-5
+          and err["S"] <= 1e-4 and err["presstens"] <= 1e-4,
+          f"K12-mt against its plain version on {label}")
+    again = b4.pair_half_mt(xi, nbr, typ, pot, grid, nt, True)
+    check(all(a is None and b is None or torch.equal(a, b)
+              for a, b in zip(out_k, again)),
+          f"K12-mt gives the same bits twice on {label}")
+    nn = b4._assemble(grid.dims, out_p[0][4], out_p[2][4])
+    pairs = float(nn[mask].double().sum()) / 2.0
+    cap = grid.capacity
+    out = {"capacity": cap, "pairs": pairs, **err,
+           "ms": time_ms(lambda: b4.pair_half_mt(xi, nbr, typ, pot, grid,
+                                                 nt), 10),
+           "plain_ms": time_ms(lambda: b4.pair_half_mt_plain(
+               xi, nbr, typ, pot, grid, nt), 2),
+           **roofline(FLOPS_PER_PAIR["pair_half_mt"] * pairs,
+                      half_bytes("pair_half_mt", xi, nbr)
+                      + 2 * nt * nt * (kernels.NPOLY + 2) * 4),
+           "tile": half_shape(cap, "pair_energy_mt")}
+    out["share"] = out["bound_ms"] / out["ms"]
+    print(f"K12-mt on {label} (cap {cap}, {pairs:.0f} pairs): "
+          f"{out['ms']:.4f} ms (plain {out['plain_ms']:.2f}, bound "
+          f"{out['bound_ms']:.4f}, {out['bound_by']})")
+    return out
+
+
+def run_binary_lj(tmp: Path, smi: str) -> dict:
+    """Phase 13a: the binary LJ through the driver at 1,000,188 atoms (nvt,
+    ber with the ramp, cg on K12-mt), K12-mt against its plain version on
+    its last state, and the 10^3-cell copy in float32 on the card against
+    float64 on the host."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import kernels
+    from imd_tpu_torch.phases import CudaPhaseTimer
+
+    cells = LJ_CELLS
+    n_atoms = 4 * cells ** 3
+    par = tmp / "bin.imd"
+    par.write_text(binary_text(cells))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    runs = run_phases(par, timer=CudaPhaseTimer())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sims = [r[0] for r in runs]
+    check([s.ensemble for s in sims] == ["nvt", "ber", "cg"]
+          and [s.step_count for s in sims] == [60, 120, 200],
+          f"binary LJ phases "
+          f"{[(s.ensemble, s.step_count) for s in sims]}")
+    s_md = sims[0].counters.steps + sims[1].counters.steps
+    cg = sims[2]
+    blocks = len(cg.block_seconds)
+    check(s_md >= sum(BIN_STEPS[:2]) and cg.counters.steps == BIN_STEPS[2]
+          and blocks == BIN_STEPS[2] // 20,
+          f"binary LJ: {s_md} MD steps, {cg.counters.steps} cg "
+          f"iterations in {blocks} blocks")
+    # one launch a step; cg: two an iteration, two more a block
+    want = s_md + 2 * cg.counters.steps + 2 * blocks
+    check(launches["pair_half_mt"] == want,
+          f"binary LJ: K12-mt launched {launches['pair_half_mt']} "
+          f"times, {want} expected")
+    others = {k: v for k, v in launches.items()
+              if k != "pair_half_mt" and v}
+    check(not others, f"other kernels launched on the binary LJ (the "
+          f"single-species K12 among them): {others}")
+    state = runs[-1][1]
+    live = state.scene.mask
+    ids = torch.sort(state.scene.id[live]).values.cpu()
+    check(len(ids) == n_atoms and torch.equal(
+        ids, torch.arange(n_atoms, dtype=ids.dtype))
+        and int(state.scene.overflow) == 0, "binary LJ: no atom lost")
+    typ = state.scene.type[live]
+    check(int((typ == 1).sum()) == n_atoms // 4
+          and int((typ == 0).sum()) == 3 * n_atoms // 4,
+          "binary LJ: a quarter B, three quarters A")
+    cols, rows = eng_rows(tmp / "binary_lj.eng")
+    check(cols[-1] == "eta*tau_eta" and [len(r) for r in rows]
+          == [6] * 3 + [5] * 7 and all(np.isfinite(r).all()
+                                       for r in rows),
+          f"binary LJ .eng: columns {cols}, widths "
+          f"{[len(r) for r in rows]}")
+    cg_rows = rows[6:]
+    check(all(r[2] == 0.0 and r[3] == 0.0 for r in cg_rows),
+          "binary LJ .eng: the cg lines have temperature and "
+          "pressure 0")
+    cg_epot = [float(r[1]) for r in cg_rows]
+    print(f"binary LJ cg: Epot per atom at the block ends "
+          f"{cg_epot}")
+    check(all(b < a for a, b in zip(cg_epot, cg_epot[1:])),
+          "binary LJ cg: Epot falls from block to block")
+    paths = {r[0].ensemble: per_step(r, n_atoms) for r in runs}
+    for name, p in paths.items():
+        print(f"binary LJ {name}: {p['ms_per_step']:.3f} ms a step "
+              f"({p['atom_steps_per_s'] / 1e6:.2f} M atom-steps/s), "
+              f"capacity {p['capacity']}, grid {p['grid']}, "
+              f"{p['host_syncs_per_step']:.3f} host syncs a step")
+    print(f"binary LJ: peak memory {peak / 1e9:.3f} GB, "
+          f"wall {wall:.1f} s")
+    k12mt = k12mt_check(cg, state, "the binary LJ's last state")
+    del runs, sims, state, cg
+    torch.cuda.empty_cache()
+
+    # the 10^3-cell copy, float32 on the card against float64 on the host
+    write_bin_start(tmp)
+    (cols, r32), s32 = run_bin_copy(tmp, "float32")
+    (_, r64), s64 = run_bin_copy(tmp, "float64", "--device", "cpu",
+                                 "--dtype", "float64")
+    worst, diffs, bad = compare_mq(cols, r32, r64, BIN_LIMITS, BIN_LINES)
+    for k, row in enumerate(diffs):
+        print(f"binary LJ 10^3 copy, .eng line {k} ({BIN_LINES[k]}), "
+              "float32 on the card against float64 on the host: "
+              + ", ".join(f"{n} {v:.3e}" for n, v in row.items()))
+    check(not bad, f"binary 10^3 copy beyond its limits: {bad}")
+    return {"config": "examples/binary_lj/binary_lj.imd as written (LJ "
+                      "Kob-Andersen ratios eps 0.35/0.525/0.175, sigma "
+                      "2.62/2.096/2.3056, r_cut 5.0; nvt 0.2 eV tau_eta "
+                      "50, ber 0.2 -> 0.01 eV tau 20, cg) on L1_2 63^3 at "
+                      "3.705 A, 1,000,188 atoms, phases ending at "
+                      "60/120/200, eng_int 20, float32, general step (13 "
+                      "views + K12-mt)",
+            "atoms": n_atoms, "wall_s": wall, "paths": paths,
+            "launches": launches, "cg_epot_per_atom": cg_epot,
+            "max_memory_allocated_bytes": peak, "k12mt": k12mt,
+            "f32_vs_f64_10cells": {"worst": worst, "lines": diffs,
+                                   "limits": BIN_LIMITS,
+                                   "float32_card_s": s32,
+                                   "float64_host_s": s64},
+            "nvidia_smi": smi}
+
+
+def run_eam_cg(tmp: Path, smi: str) -> dict:
+    """Phase 13b: ``ensemble cg`` on the flagship's fcc Al 63^3 with the
+    analytic EAM (K4/K5), from the lattice displaced by EAM_CG_SHIFT A
+    (seed 14), EAM_CG_ITERS iterations in blocks of 10: K4/K5 twice an
+    iteration and twice more a block, nothing else; the energy at every
+    iteration (the driver's cg_relax calls, recorded) must fall, within
+    the float32 rounding of the summed energy: each in-cutoff pair's
+    Horners round to 2^-24 of the fits' coefficient mass (sum |c_k| of the
+    pair and density fits, ROADMAP C2), and the pairs' roundings add as a
+    random walk, so three times 2^-24 mass sqrt(pairs).  (In float64 the
+    same relaxation falls at every iteration to 5e-12 eV; in float32 it
+    stalls once the forces reach their own rounding and then wanders by
+    up to ~1e-2 eV on 864 atoms, the CPU rehearsal.)  The relaxation must
+    lower the energy by more than a hundred such bounds."""
+    import numpy as np
+    import torch
+
+    from imd_tpu_torch import flagship, kernels, relax
+    from imd_tpu_torch.io.chkpt import ChkptData, write_chkpt
+    from imd_tpu_torch.models.potential import write_pot_table
+    from imd_tpu_torch.ops import forces_pallas as b4
+    from imd_tpu_torch.ops.fused_step import cl_inputs
+    from imd_tpu_torch.phases import CudaPhaseTimer
+    from imd_tpu_torch.utils.generate import fcc
+
+    cells = LJ_CELLS
+    d = tmp / "eam_cg"
+    d.mkdir()
+    tabs = flagship.eam_tables(1, None, dtype=np.float64)
+    for name in ("pair", "rho", "embed"):
+        write_pot_table(getattr(tabs, name), str(d / f"{name}.pt"))
+    pos, _, diag = fcc((cells,) * 3, 4.05)
+    n_atoms = len(pos)
+    pos = pos + np.random.default_rng(14).normal(scale=EAM_CG_SHIFT,
+                                                 size=pos.shape)
+    write_chkpt(str(d / "start.chkpt"), ChkptData(
+        number=np.arange(n_atoms), type=np.zeros(n_atoms, int),
+        mass=np.full(n_atoms, 26.9815), pos=pos, vel=np.zeros_like(pos),
+        data=np.zeros((n_atoms, 1)), box_x=np.array([diag[0], 0, 0]),
+        box_y=np.array([0, diag[1], 0]), box_z=np.array([0, 0, diag[2]])),
+        binary=True, double=True)
+    (d / "eam.imd").write_text(EAM_GEN.format(
+        coord="start.chkpt", cells=cells, nt=1, out="eam",
+        masses="26.9815") + f"do_maxwell 0\nensemble cg\n"
+        f"maxsteps {EAM_CG_ITERS}\n")
+    traces, fnorms = [], []
+    cg_relax = relax.cg_relax
+
+    def recorded(*args, **kw):
+        scene, epots, fnorm = cg_relax(*args, **kw)
+        traces.append(epots.cpu())
+        fnorms.append(float(fnorm))
+        return scene, epots, fnorm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    relax.cg_relax = recorded
+    t0 = time.perf_counter()
+    try:
+        runs = run_phases(d / "eam.imd", timer=CudaPhaseTimer())
+    finally:
+        relax.cg_relax = cg_relax
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    sim, state = runs[0][0], runs[0][1]
+    blocks = len(sim.block_seconds)
+    want = 2 * EAM_CG_ITERS + 2 * blocks
+    check(sim.ensemble == "cg" and sim.counters.steps == EAM_CG_ITERS
+          and blocks == EAM_CG_ITERS // 10
+          and launches["eam_rho_e"] == launches["eam_force_s"] == want,
+          f"EAM cg: K4/K5 twice an iteration and twice a block ({want}): "
+          f"{launches}")
+    others = {k: v for k, v in launches.items()
+              if k not in ("eam_rho_e", "eam_force_s") and v}
+    check(not others, f"other kernels launched on the EAM cg: {others}")
+    live = state.scene.mask
+    ids = torch.sort(state.scene.id[live]).values.cpu()
+    check(len(ids) == n_atoms and torch.equal(
+        ids, torch.arange(n_atoms, dtype=ids.dtype)), "EAM cg: no atom lost")
+    trace = torch.cat(traces).double().numpy()
+    # the float32 rounding of the summed energy (above); K4's count of the
+    # last state's neighbours gives the pairs (a launch not counted)
+    xi, _, alive = cl_inputs(state.scene)
+    pairs = float(b4.eam_rho_e(xi, alive, sim.eam_run, sim.grid)[1]
+                  .double().sum()) / 2.0
+    mass = sum(abs(c) for fit in (sim.eam_run.pair, sim.eam_run.rho)
+               for c in fit.host[0][0])
+    noise = 3.0 * 2.0 ** -24 * mass * pairs ** 0.5
+    rises = np.diff(trace)
+    print(f"EAM cg: Epot at each iteration {trace.tolist()}; sum F.F at "
+          f"the block ends {fnorms}; largest rise {rises.max():.4e} eV "
+          f"(noise bound {noise:.4e} eV)")
+    check(len(trace) == EAM_CG_ITERS and bool((rises <= noise).all())
+          and trace[0] - trace[-1] > 100.0 * noise
+          and fnorms[-1] < fnorms[0],
+          "EAM cg: the energy falls at every iteration")
+    report = {
+        "config": "flagship fcc Al 63^3 (1,000,188 atoms), analytic EAM "
+                  f"degree-12 fit, displaced by {EAM_CG_SHIFT} A (seed "
+                  f"14), ensemble cg {EAM_CG_ITERS} iterations, eng_int "
+                  "10, float32 (K4/K5)",
+        "atoms": n_atoms, "wall_s": wall,
+        "path": per_step(runs[0], n_atoms),
+        "epot_trace": trace.tolist(), "fnorm_block_ends": fnorms,
+        "largest_rise_eV": float(rises.max()), "noise_eV": noise,
+        "pairs": pairs, "coefficient_mass": mass,
+        "launches": launches,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "nvidia_smi": smi}
+    return report
+
+
 def pair_errors(out_k, out_p, mask, dims) -> dict:
     """K12's outputs against its plain version's, assembled: cutoff flips
     (live slots whose count differs), max |d| / max over live slots of F
@@ -2498,7 +2898,7 @@ def main() -> int:
     for row in (*kernels.WIN_FLAGS, *kernels.OTHER_SYMBOLS):
         print(f"ptxas {row}: {usage.get(row)}")
     for row in (*kernels.WIN_FLAGS, "eam_rho_half", "eam_force_half",
-                "pair_half"):
+                "pair_half", "pair_half_mt"):
         check(row in usage and usage[row]["spill_bytes"] == 0,
               f"{row}: -Xptxas -v shows no spills ({usage.get(row)})")
 
@@ -3653,6 +4053,28 @@ def main() -> int:
         **{k: eam_gen["launches"]["ber"][k]
            for k in ("eam_rho_e_mt", "eam_force_s_mt")}}
 
+    # ---- 13. multi-species pairs (K12-mt) and ensemble cg ---------------
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="imd_bin_") as bin_dir:
+        bin_dir = Path(bin_dir)
+        binr = run_binary_lj(bin_dir, smi)
+        torch.cuda.empty_cache()
+        eam_cg = run_eam_cg(bin_dir, smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"multi_species_cg": {
+        "binary_lj": binr, "eam_cg": eam_cg,
+        "phase_wall_s": time.perf_counter() - t13,
+        "host_threads": torch.get_num_threads(), "device": dev_name,
+        "nvidia_smi": smi}}))
+    k12mt = binr["k12mt"]
+    ms["pair_half_mt"] = k12mt["ms"]
+    plain_ms["pair_half_mt"] = k12mt["plain_ms"]
+    work["pair_half_mt"] = (k12mt["flops"], k12mt["bytes"])
+    launches["pair_half_mt"] = binr["launches"]["pair_half_mt"]
+    errs["pair_half_mt"] = k12mt["max_abs"]
+    cg_launches = {k: eam_cg["launches"][k]
+                   for k in ("eam_rho_e", "eam_force_s")}
+
     rows = [("eam_rho", "eam_win.cu", "imd_tpu/ops/forces_win.py:306"),
             ("eam_force", "eam_win.cu", "imd_tpu/ops/forces_win.py:411"),
             ("compact", "rebin_compact.cu", "imd_tpu/ops/rebin_cl.py:66"),
@@ -3670,6 +4092,10 @@ def main() -> int:
             ("eam_force_half", "eam_half.cu",
              "imd_tpu/ops/forces_pallas.py:747"),
             ("pair_half", "eam_half.cu",
+             "imd_tpu/ops/forces_pallas.py:487"),
+            # K12's typed counterpart for 2-4 species (imd_tpu's B6 bakes
+            # column 0, ROADMAP C3)
+            ("pair_half_mt", "eam_half.cu",
              "imd_tpu/ops/forces_pallas.py:487"),
             # B8 (compute_eam_forces_pallas2) runs K4/K5: their times, its
             # launches and errors on the flagship Scene
@@ -3697,6 +4123,10 @@ def main() -> int:
         "k12_launches_by_capacity"]
     tiles["pair_half"]["cap24"] = k12_cap24
     tiles["pair_half"]["phase7_last_state"] = lj_report["k12_last_state"]
+    tiles["pair_half_mt"] = {"smem_dynamic_bytes": k12mt["tile"][
+        "smem_dynamic_bytes"], "tile": {k: v for k, v in k12mt["tile"].items()
+                                        if k != "smem_dynamic_bytes"},
+        "capacity": k12mt["capacity"], "pairs": k12mt["pairs"]}
     launches["eam_rho_e_b8"] = b8_launches["eam_rho_e"]
     launches["eam_force_s_b8"] = b8_launches["eam_force_s"]
     out = []
@@ -3715,6 +4145,8 @@ def main() -> int:
                     extra[key] = rep_["launches"][n]
             if gen_launches.get(n):
                 extra["launches_general_ensembles"] = gen_launches[n]
+            if cg_launches.get(n):
+                extra["launches_eam_cg"] = cg_launches[n]
         out.append({
             "name": n, "route": "cuda", "source": f"imd_tpu_torch/csrc/{src}",
             "replaces": rep, "launches": launches[n], **extra,

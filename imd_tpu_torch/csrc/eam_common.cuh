@@ -11,6 +11,11 @@
 #include <stdint.h>
 
 #define NPOLY 16
+// multi-type coefficient tables (kernels.MT_TABLES): rows of NPOLY
+// coefficients, then a and b0, one row per type pair of at most MAX_NT
+// species; a row has the layout of struct Poly
+#define PROW (NPOLY + 2)
+#define MAX_NT 4
 
 struct Poly {
     float c[NPOLY];   // coefficient of t^k, zero-padded above the degree

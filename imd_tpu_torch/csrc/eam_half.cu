@@ -6,11 +6,18 @@
 //   pair_half_kernel       K12 pair_half:      the pair force, energy
 //                                              (phi/2 to each side), count
 //                                              and the six stress sums
+//   pair_half_mt_kernel    K12-mt pair_half_mt: K12 for 2-4 species, each
+//                                              pair on its type pair's
+//                                              table column
 // Replaces the Pallas kernels
 //   kern_r (eam_r_pass, imd_tpu/ops/forces_pallas.py:641, call :670) -> K10
 //   kern_f (eam_f_pass, imd_tpu/ops/forces_pallas.py:747, call :772) -> K11
 //   kern (compute_pair_forces_pallas, imd_tpu/ops/forces_pallas.py:487,
 //         call :522)                                                 -> K12
+// and K12-mt is that kernel's typed counterpart: imd_tpu's B6 bakes table
+// column 0 into every pair whatever the types (ROADMAP C3); K12-mt reads
+// column t_i * nt + t_j, as imd_tpu's XLA engines do
+// (imd_tpu/ops/forces.py:116-127, forces_fast.py:136).
 // with the same contract: the kernels read the views they are given and
 // know nothing of the periodicity, and write i-sums and per-offset j-side
 // partials that torch rolls back and adds (_assemble, forces_pallas.py).
@@ -23,6 +30,9 @@
 //                          open face at 3e6 (prep_neighbors)
 //   dF  [cap, NC], dFn [NOF, cap, NC]   K11: the half embedding derivative
 //                          and its 13 views
+//   typ [cap, NC] int32    K12-mt: the types (-1 in dead slots); tab
+//                          [2][nt * nt][PROW] the fits' rows (phi, then
+//                          2 dphi/dr^2; kernels.MT_TABLES' row layout)
 // Outputs:
 //   K10  out_i [nk, cap, NC], out_j [nk, NOF, cap, NC] (rho, then nn when
 //        counting: nk = 2)
@@ -116,6 +126,19 @@
 // bytes are K11's less dF: the views in, five outputs and their 13
 // j-partials out.
 //
+// K12-mt is K12 with a type per slot: the block copies the [2][nt * nt]
+// coefficient rows into shared memory behind the lists (HALF_MT_TAB bytes,
+// room for MAX_NT species), stages each slot's type in .w of its float4
+// (the own cell's from typ at its cell, a view's from typ at the cell whose
+// slots the view holds, the neighbour cell at the view's offset on the
+// periodic lattice, half_neighbor; a cell across an open face sits at 3e6
+// in the view and is never listed, so the type read there is unused), and
+// the flush evaluates the row t_i * nt + t_j of each listed pair (types
+// clamped to 0..nt-1, as the plain version clamps them).  Everything else
+// is K12's: the scratch holds the typed g and phi, so the j side is
+// unchanged.  Its bytes add the types: one int32 for each live slot and
+// view entry.
+//
 // Rounding: compiled with -fmad=false (kernels.py), like eam_win.cu.  The
 // scan's fused r^2 is a filter only: every value is computed from the
 // rounded r^2.
@@ -127,6 +150,9 @@
 #define HALF_MAX_SMEM 232448   // kernels.HALF_MAX_SMEM: the H100's 227 KB
 #define HALF_MAX_CAP 128     // kernels.HALF_MAX_CAP: j fits the list's 8 bits
 #define HALF_DEG 12          // kernels.WIN_DEG: the fits' value degree
+// K12-mt's coefficient rows in shared memory: two tables of MAX_NT^2 rows
+// (forces_win.HALF_MT_TAB)
+#define HALF_MT_TAB (2 * MAX_NT * MAX_NT * PROW * 4)
 #define FULL 0xffffffffu
 
 // The block's view of its dynamic shared memory (layout: half_smem) and this
@@ -146,15 +172,17 @@ struct Half {
     bool mine;        // a slot of a cell of the grid
 };
 
-// Bytes of dynamic shared memory for the launch shape; host and device.
+// Bytes of dynamic shared memory for the launch shape (with K12-mt's
+// coefficient rows behind the lists when ``mt``); host and device.
 __host__ __device__ inline size_t half_smem(int cap, int cpb, int threads,
-                                            int nf) {
+                                            int nf, bool mt = false) {
     const size_t words = (size_t)(cap + 31) / 32, cells = cpb;
     return 16 * 3 * (size_t)cap * cells
         + 4 * (size_t)nf * cap * (cap * cells + 1)
         + 4 * words * cap * cells
         + 4 * 3 * cells
-        + 2 * (size_t)cap * threads;
+        + 2 * (size_t)cap * threads
+        + (mt ? HALF_MT_TAB : 0);
 }
 
 __device__ __forceinline__ Half carve_half(const EamParams& P, int nf,
@@ -203,13 +231,28 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
                  :: "r"(d), "l"(src) : "memory");
 }
 
+// The flat index of the cell whose slots view m holds at the index of
+// cell (cx, cy, cz): the neighbour at HALF_OFFSETS[m] = ALL_OFFSETS[14 + m]
+// on the periodic lattice (forces_fast._roll_cells).
+__device__ __forceinline__ int half_neighbor(const EamParams& P, int cx,
+                                             int cy, int cz, int m) {
+    const int k = 14 + m;
+    const int x = (cx + k / 9 - 1 + P.gx) % P.gx;
+    const int y = (cy + (k / 3) % 3 - 1 + P.gy) % P.gy;
+    const int z = (cz + k % 3 - 1 + P.gz) % P.gz;
+    return (x * P.gy + y) * P.gz + z;
+}
+
 // Issue the asynchronous copies of slot s of view m of nbr (x, y, z, and dF
-// from dFn when given) into staged array a; land_view waits for them and
+// from dFn when given; with MT the slot's type from typ at cell ``cn``, the
+// view's neighbour cell) into staged array a; land_view waits for them and
 // raises the cell's limit of that array.
+template <bool MT>
 __device__ __forceinline__ void copy_view(const Half& h,
                                           const float* __restrict__ nbr,
                                           const float* __restrict__ dFn,
-                                          int m, int a, size_t n) {
+                                          const int32_t* __restrict__ typ,
+                                          int cn, int m, int a, size_t n) {
     if (!h.mine) return;
     const size_t row = (size_t)m * h.cap + h.s;
     const float* src = nbr + row * 3 * n + h.c;
@@ -217,7 +260,11 @@ __device__ __forceinline__ void copy_view(const Half& h,
     copy4(dst, src);
     copy4(dst + 1, src + n);
     copy4(dst + 2, src + 2 * n);
-    if (dFn) copy4(dst + 3, dFn + row * n + h.c);
+    if (MT)
+        copy4(dst + 3, reinterpret_cast<const float*>(
+                           typ + (size_t)h.s * n + cn));
+    else if (dFn)
+        copy4(dst + 3, dFn + row * n + h.c);
     asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
@@ -273,7 +320,7 @@ __device__ __forceinline__ void zero_half(const Half& h, float* out_i,
 }
 
 // A listed pair as the flush sees it: the slot j of staged array a, the
-// rounded differences and r^2, dF_j (K11).
+// rounded differences and r^2, dF_j (K11; K12-mt: the bits of t_j).
 struct Entry {
     int j;
     float dx, dy, dz, r2, dfj;
@@ -352,14 +399,18 @@ __device__ __forceinline__ void fold_view(Sums& u) {
 // pair force, phi/2 to each side when ``energy``, the count within nr2
 // when ``count``, the stress sums when out_s is given), for fits of value
 // degree at most DV (the wrappers hold them to it).  ``energy`` is 0 in
-// K10 and K11, ``count`` 0 in K11.
-template <int KIND, int DV>
+// K10 and K11, ``count`` 0 in K11.  MT (K12-mt, HALF_PAIR only): the
+// pair's fit is row t_i * nt + t_j of ``tab`` for ``nt`` species, with the
+// types from ``typ``.
+template <int KIND, int DV, bool MT = false>
 __device__ __forceinline__ void half_body(
     const float* __restrict__ xi, const float* __restrict__ nbr,
     const float* __restrict__ dF, const float* __restrict__ dFn,
     float* __restrict__ out_i, float* __restrict__ out_s,
     float* __restrict__ out_j, int energy, int count, float nr2, int nc,
-    const EamParams& P) {
+    const EamParams& P, const int32_t* __restrict__ typ = nullptr,
+    const float* __restrict__ tab = nullptr, int nt = 1) {
+    static_assert(!MT || KIND == HALF_PAIR, "MT is K12's");
     constexpr bool RHO = KIND == HALF_RHO, PAIR = KIND == HALF_PAIR;
     constexpr bool GRAD = !RHO;   // a gradient per pair, forces out
     const Half h = carve_half(P, 1 + energy, nc);
@@ -378,17 +429,35 @@ __device__ __forceinline__ void half_body(
     const int nm = h.words * h.cap * h.cpb;
     for (int k = threadIdx.x; k < nm; k += blockDim.x) h.mask[k] = 0u;
     for (int k = threadIdx.x; k < 3 * h.cpb; k += blockDim.x) h.lim[k] = 0;
+    // K12-mt: the coefficient rows behind the lists, this cell's place on
+    // the lattice (for the views' neighbour cells) and the slot's type
+    const Poly* rows = nullptr;
+    int cx = 0, cy = 0, cz = 0, ti = 0;
+    if constexpr (MT) {
+        float* st = reinterpret_cast<float*>(h.list + (size_t)cap
+                                             * blockDim.x);
+        for (int k = threadIdx.x; k < 2 * nt * nt * PROW; k += blockDim.x)
+            st[k] = tab[k];
+        rows = reinterpret_cast<const Poly*>(st);
+        cz = h.c % P.gz;
+        cy = (h.c / P.gz) % P.gy;
+        cx = h.c / (P.gz * P.gy);
+    }
     float x = 0.0f, y = 0.0f, z = 0.0f, dfi = 0.0f;
     if (h.mine) {
         x = xi[(3 * (size_t)s) * n + h.c];
         y = xi[(3 * (size_t)s + 1) * n + h.c];
         z = xi[(3 * (size_t)s + 2) * n + h.c];
         if (KIND == HALF_FORCE) dfi = dF[(size_t)s * n + h.c];
+        if (MT) ti = min(max(typ[(size_t)s * n + h.c], 0), nt - 1);
     }
-    copy_view(h, nbr, dFn, 0, 1, n);
+    copy_view<MT>(h, nbr, dFn, typ,
+                  MT ? half_neighbor(P, cx, cy, cz, 0) : 0, 0, 1, n);
     __syncthreads();
     const bool live = h.mine && x < dead;
-    if (h.slot) staged(h, 0, s) = make_float4(x, y, z, dfi);
+    if (h.slot)
+        staged(h, 0, s) = make_float4(x, y, z,
+                                      MT ? __int_as_float(ti) : dfi);
     if (live) atomicMax(&h.lim[h.cl], s + 1);
     if (!__syncthreads_or(live)) {
         asm volatile("cp.async.wait_group 0;" ::: "memory");
@@ -405,7 +474,10 @@ __device__ __forceinline__ void half_body(
         const int a_next = 1 + (m & 1);
         // the next view flies into the array of the one before (the
         // prologue copied the first)
-        if (m && m < NOF) copy_view(h, nbr, dFn, m, a_next, n);
+        if (m && m < NOF)
+            copy_view<MT>(h, nbr, dFn, typ,
+                          MT ? half_neighbor(P, cx, cy, cz, m) : 0, m,
+                          a_next, n);
         if (scans) {
             const int n_list = scan_half(h, live, x, y, z, lim2, a);
             // the flush: the Horners over the list, two entries a step
@@ -422,6 +494,14 @@ __device__ __forceinline__ void half_body(
                 for (int t = 0; t < 2; ++t) {
                     if (RHO) {
                         v[t] = horner_d<DV>(P.rho_v, q[t].r2);
+                    } else if (PAIR && MT) {
+                        // row t_i * nt + t_j: phi in table 0, 2 dphi/dr^2
+                        // in table 1
+                        const int tj = min(
+                            max(__float_as_int(q[t].dfj), 0), nt - 1);
+                        const Poly& pv = rows[ti * nt + tj];
+                        g[t] = horner_d<DV - 1>((&pv)[nt * nt], q[t].r2);
+                        if (energy) v[t] = horner_d<DV>(pv, q[t].r2);
                     } else if (PAIR) {
                         g[t] = horner_d<DV - 1>(P.pair_g, q[t].r2);
                         if (energy) v[t] = horner_d<DV>(P.pair_v, q[t].r2);
@@ -590,22 +670,36 @@ pair_half_kernel(const float* __restrict__ xi, const float* __restrict__ nbr,
                                    out_j, energy, count, nr2, nc, P);
 }
 
-// The launch shape of K10-K12 (nf scratch fields) as forces_win.half_tile
-// makes it: whole warps of cap * cpb threads and half_smem's bytes within
-// the H100's 227 KB.
-static bool half_ok(const EamParams& P, int nf) {
+__global__ void __launch_bounds__(HALF_MAX_THREADS)
+pair_half_mt_kernel(const float* __restrict__ xi,
+                    const float* __restrict__ nbr,
+                    const int32_t* __restrict__ typ,
+                    const float* __restrict__ tab, int nt,
+                    float* __restrict__ out_i, float* __restrict__ out_s,
+                    float* __restrict__ out_j, int energy, int count,
+                    float nr2, int nc, const __grid_constant__ EamParams P) {
+    half_body<HALF_PAIR, HALF_DEG, true>(xi, nbr, nullptr, nullptr, out_i,
+                                         out_s, out_j, energy, count, nr2,
+                                         nc, P, typ, tab, nt);
+}
+
+// The launch shape of K10-K12 (nf scratch fields; K12-mt's rows when
+// ``mt``) as forces_win.half_tile makes it: whole warps of cap * cpb
+// threads and half_smem's bytes within the H100's 227 KB.
+static bool half_ok(const EamParams& P, int nf, bool mt = false) {
     const HalfTile& t = P.half;
     const int cap = P.cap;
     if (cap < 1 || cap > HALF_MAX_CAP || t.cpb < 1) return false;
     const int threads = (cap * t.cpb + 31) / 32 * 32;
     return t.threads == threads && threads <= HALF_MAX_THREADS
         && t.smem <= HALF_MAX_SMEM
-        && (size_t)t.smem == half_smem(cap, t.cpb, threads, nf);
+        && (size_t)t.smem == half_smem(cap, t.cpb, threads, nf, mt);
 }
 
 template <typename K>
-static cudaError_t prepare_half(K kernel, const EamParams& P, int nf) {
-    if (!half_ok(P, nf)) return cudaErrorInvalidValue;
+static cudaError_t prepare_half(K kernel, const EamParams& P, int nf,
+                                bool mt = false) {
+    if (!half_ok(P, nf, mt)) return cudaErrorInvalidValue;
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 P.half.smem);
@@ -652,5 +746,27 @@ extern "C" int imd_pair_half(const void* xi, const void* nbr, void* out_i,
                        STREAM(stream)>>>(
         (const float*)xi, (const float*)nbr, (float*)out_i, (float*)out_s,
         (float*)out_j, energy, count, nr2, nc, *p);
+    return (int)cudaGetLastError();
+}
+
+// ``typ`` [cap, NC] int32, ``tab`` [2][nt * nt][PROW] float32 (phi's rows,
+// then 2 dphi/dr^2's), 2 <= nt <= MAX_NT.
+extern "C" int imd_pair_half_mt(const void* xi, const void* nbr,
+                                const void* typ, const void* tab, int nt,
+                                void* out_i, void* out_s, void* out_j,
+                                int energy, int count, float nr2,
+                                const EamParams* p, int nc, void* stream) {
+    const HalfTile& t = p->half;
+    if (nt < 2 || nt > MAX_NT) return (int)cudaErrorInvalidValue;
+    energy = energy ? 1 : 0;
+    count = count ? 1 : 0;
+    cudaError_t err = prepare_half(pair_half_mt_kernel, *p, 1 + energy,
+                                   true);
+    if (err != cudaSuccess) return (int)err;
+    pair_half_mt_kernel<<<(nc + t.cpb - 1) / t.cpb, t.threads, t.smem,
+                          STREAM(stream)>>>(
+        (const float*)xi, (const float*)nbr, (const int32_t*)typ,
+        (const float*)tab, nt, (float*)out_i, (float*)out_s, (float*)out_j,
+        energy, count, nr2, nc, *p);
     return (int)cudaGetLastError();
 }

@@ -155,9 +155,6 @@
 
 #include "eam_common.cuh"
 
-// MT coefficient tables: rows of NPOLY coefficients, then a and b0.
-#define PROW (NPOLY + 2)
-#define MAX_NT 4
 // order of the tables in the device buffer: the R pass reads the first
 // two, the F pass the last two
 enum { T_RHO_V = 0, T_PAIR_V = 1, T_PAIR_G = 2, T_RHO_G = 3 };

@@ -69,7 +69,7 @@ MT_TABLES = ("rho_v", "pair_v", "pair_g", "rho_g")
 LAUNCHES = {"eam_rho": 0, "eam_force": 0, "compact": 0, "eam_rho_e": 0,
             "eam_force_s": 0, "eam_rho_mt": 0, "eam_force_mt": 0,
             "eam_rho_e_mt": 0, "eam_force_s_mt": 0, "eam_rho_half": 0,
-            "eam_force_half": 0, "pair_half": 0}
+            "eam_force_half": 0, "pair_half": 0, "pair_half_mt": 0}
 
 
 def reset_launches() -> None:
@@ -215,12 +215,15 @@ def lib() -> ctypes.CDLL:
         # nc, stream
         cdll.imd_pair_half.argtypes = [vp, vp, vp, vp, vp, ci, ci,
                                        ctypes.c_float, pp, ci, vp]
+        # typed pair: xi, nbr, typ, tab, nt, then as imd_pair_half
+        cdll.imd_pair_half_mt.argtypes = [vp, vp, vp, vp, ci, vp, vp, vp, ci,
+                                          ci, ctypes.c_float, pp, ci, vp]
         for fn in (cdll.imd_eam_rho, cdll.imd_eam_rho_e, cdll.imd_eam_force,
                    cdll.imd_eam_force_s, cdll.imd_compact,
                    cdll.imd_eam_rho_mt, cdll.imd_eam_rho_e_mt,
                    cdll.imd_eam_force_mt, cdll.imd_eam_force_s_mt,
                    cdll.imd_eam_rho_half, cdll.imd_eam_force_half,
-                   cdll.imd_pair_half):
+                   cdll.imd_pair_half, cdll.imd_pair_half_mt):
             fn.restype = ci
         _lib = cdll
     return _lib
@@ -236,7 +239,8 @@ WIN_FLAGS = {"eam_rho": ("rho", 0, 0), "eam_force": ("force", 0, 0),
 OTHER_SYMBOLS = {"compact": "compact_kernel",
                  "eam_rho_half": "eam_rho_half_kernel",
                  "eam_force_half": "eam_force_half_kernel",
-                 "pair_half": "pair_half_kernel"}
+                 "pair_half": "pair_half_kernel",
+                 "pair_half_mt": "pair_half_mt_kernel"}
 
 
 def ptxas_usage(log: str) -> dict:

@@ -58,7 +58,11 @@ engine, runs the same contract for one pair table: K12 ``pair_half``
 (csrc/eam_half.cu, beside ``pair_half_plain``) sweeps the own cell and the
 13 views once per pair and returns the i-sums and j-partials of fx, fy, fz
 (and of e = phi/2 to each side, and of the count) and six i-side stress
-sums; ``_assemble`` rolls the j-partials back.
+sums; ``_assemble`` rolls the j-partials back.  For 2 <= ntypes <= 4
+species the same sweep runs K12-mt ``pair_half_mt`` (beside
+``pair_half_mt_plain``), which evaluates each pair on the table column
+t_i * ntypes + t_j, as imd_tpu's XLA engines do (its B6 evaluates column 0
+for every pair, ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -72,11 +76,12 @@ from imd_tpu_torch.ops.forces import HALF_OFFSETS
 from imd_tpu_torch.ops.forces_fast import (_from_cl, _roll_cells,
                                            _roll_cells_back, _to_cl,
                                            _wrap_shift_mask_cl)
-from imd_tpu_torch.ops.forces_win import (_check_cuda_dF, _check_cuda_inputs,
+from imd_tpu_torch.ops.forces_win import (SENTINEL_DEAD, _check_cuda_dF,
+                                          _check_cuda_inputs,
                                           _horner_g, _horner_g2, _horner_v,
                                           _mt_grad_pairs, _mt_stencil_pairs,
-                                          _mt_table, _pair_params,
-                                          _params_for,
+                                          _mt_table, _pair_mt_table,
+                                          _pair_params, _params_for,
                                           _poly_consts, _select_cols,
                                           _stencil_pairs, check_mt_tables,
                                           embed_mt)
@@ -377,16 +382,22 @@ def make_neighbor_views(grid, dtype, device="cpu"):
     return views
 
 
+def _prep(scene: Scene, views=None):
+    """``prep_neighbors`` with the types: (xi, nbr, mask, typ [cap,NC]
+    int32, -1 where dead)."""
+    xi, typ, mask = cl_inputs(scene)
+    if views is None:
+        views = make_neighbor_views(scene.grid, xi.dtype, xi.device)
+    return xi, views(xi), mask, typ
+
+
 def prep_neighbors(scene: Scene, views=None):
     """Cells-last views with sentinel-pushed invalid positions: (xi
     [cap,3,NC] with dead slots at SENTINEL_DEAD, nbr [13,cap,3,NC],
     mask [cap,NC]).  ``views``: ``make_neighbor_views`` of the scene's
     grid, made once by a caller that steps (its shifts and validity come
     from the host), else made here."""
-    xi, _, mask = cl_inputs(scene)
-    if views is None:
-        views = make_neighbor_views(scene.grid, xi.dtype, xi.device)
-    return xi, views(xi), mask
+    return _prep(scene, views)[:3]
 
 
 def _assemble(dims, acc_i, accj):
@@ -423,7 +434,12 @@ def _nr2(grid, neigh_r2: float) -> float:
 
 def _book(acc_i, acc_j, k, m, v):
     """Add the pair values ``v`` [cap_i, cap_j, NC] of sweep ``m`` to the
-    i-sums and j-partials of output ``k`` (the own cell: both to i)."""
+    i-sums and j-partials of output ``k`` (the own cell: both to i).
+    K10/K11's plain versions keep this dense sweep: no driver run reaches
+    them (the fused loop's engine is K1/K2's), so only the tests and
+    chip_smoke's plain timings call them.  K12's plain version lists its
+    pairs instead (``_pair_half_sweep``): the float64 host copies of
+    chip_smoke's pair phases run it."""
     if m < 0:
         acc_i[k] = v.sum(1) + v.sum(0)
     else:
@@ -633,6 +649,59 @@ def _pair_keys(need_energy: bool, count_neighbors: bool):
             + (("nn",) if count_neighbors else ()))
 
 
+def _pair_half_sweep(xi, nbr, grid, values, count_neighbors, neigh_r2,
+                     need_energy, need_stress):
+    """The plain K12 sweep over the pairs within the cutoff, listed: with
+    ``values(m, r2, i, j, c)`` -> (g, phi or None) the fit's 2 dphi/dr^2
+    and phi of sweep ``m``'s listed pairs (slot i of cell c with slot j of
+    the sweep's cell or view at c), each value is added to its sums with
+    ``index_add_``.  Only the slots up to the last live one of any cell or
+    view take part: the slots past it are dead and pair with no live slot,
+    and their outputs (unspecified) are left zero."""
+    rcut2 = float(grid.cutoff) ** 2
+    nr2 = _nr2(grid, neigh_r2)
+    keys = _pair_keys(need_energy, count_neighbors)
+    cap, _, nc = xi.shape
+    dead = SENTINEL_DEAD / 2
+    live = (xi[:, 0] < dead).any(1) | (nbr[:, :, 0] < dead).any(2).any(0)
+    n = int(live.nonzero().max()) + 1 if bool(live.any()) else 0
+    acc_i = xi.new_zeros((len(keys), cap * nc))
+    acc_j = xi.new_zeros((len(keys), NOF, cap * nc))
+    acc_s = xi.new_zeros((6, cap * nc)) if need_stress else None
+
+    def book(k, m, at_i, at_j, v):
+        acc_i[k].index_add_(0, at_i, v)
+        if m < 0:
+            acc_i[k].index_add_(0, at_j, v)
+        else:
+            acc_j[k, m].index_add_(0, at_j, v)
+
+    for m, dx, dy, dz, r2, insf in _half_pairs(xi[:n], nbr[:, :n], rcut2):
+        i, j, c = (insf > 0).nonzero(as_tuple=True)
+        r = r2[i, j, c]
+        g, phi = values(m, r, i, j, c)
+        d = (dx[i, j, c], dy[i, j, c], dz[i, j, c])
+        gd = [g * dk for dk in d]
+        at_i, at_j = i * nc + c, j * nc + c
+        for k in range(3):
+            acc_i[k].index_add_(0, at_i, -gd[k])
+            if m < 0:
+                acc_i[k].index_add_(0, at_j, gd[k])
+            else:
+                acc_j[k, m].index_add_(0, at_j, gd[k])
+        if need_energy:
+            book(3, m, at_i, at_j, 0.5 * phi)
+        if count_neighbors:
+            book(len(keys) - 1, m, at_i, at_j, torch.ones_like(r)
+                 if nr2 >= rcut2 else (r < nr2).to(xi.dtype))
+        if need_stress:
+            for k, (a, b) in enumerate(_VOIGT):
+                acc_s[k].index_add_(0, at_i, -(gd[a] * d[b]))
+    return (acc_i.view(len(keys), cap, nc),
+            None if acc_s is None else acc_s.view(6, cap, nc),
+            acc_j.view(len(keys), NOF, cap, nc))
+
+
 def pair_half_plain(xi, nbr, pot, grid, count_neighbors: bool = False,
                     neigh_r2: float = 0.0, need_energy: bool = True,
                     need_stress: bool = True):
@@ -643,33 +712,40 @@ def pair_half_plain(xi, nbr, pot, grid, count_neighbors: bool = False,
     ``neigh_r2`` when ``count_neighbors``; and the six stress sums -g d_a
     d_b (Voigt xx yy zz yz zx xy), i side only, when ``need_stress``.
     Unmasked, as K10/K11."""
-    rcut2 = float(grid.cutoff) ** 2
-    nr2 = _nr2(grid, neigh_r2)
     pair_c = _poly_consts(pot)
-    keys = _pair_keys(need_energy, count_neighbors)
-    cap, _, nc = xi.shape
-    acc_i = xi.new_zeros((len(keys), cap, nc))
-    acc_j = xi.new_zeros((len(keys), NOF, cap, nc))
-    acc_s = xi.new_zeros((6, cap, nc)) if need_stress else None
-    for m, dx, dy, dz, r2, insf in _half_pairs(xi, nbr, rcut2):
-        g = _horner_g(r2, pair_c) * insf
-        d = (dx, dy, dz)
-        gd = [g * dc for dc in d]
-        for k in range(3):
-            if m < 0:
-                acc_i[k] = -gd[k].sum(1) + gd[k].sum(0)
-            else:
-                acc_i[k] += -gd[k].sum(1)
-                acc_j[k, m] = gd[k].sum(0)
-        if need_energy:
-            _book(acc_i, acc_j, 3, m, 0.5 * (_horner_v(r2, pair_c) * insf))
-        if count_neighbors:
-            _book(acc_i, acc_j, len(keys) - 1, m, insf if nr2 >= rcut2
-                  else insf * (r2 < nr2).to(xi.dtype))
-        if need_stress:
-            for k, (a, b) in enumerate(_VOIGT):
-                acc_s[k] += -(gd[a] * d[b]).sum(1)
-    return acc_i, acc_s, acc_j
+
+    def values(m, r2, i, j, c):
+        return (_horner_g(r2, pair_c),
+                _horner_v(r2, pair_c) if need_energy else None)
+    return _pair_half_sweep(xi, nbr, grid, values, count_neighbors,
+                            neigh_r2, need_energy, need_stress)
+
+
+def pair_half_mt_plain(xi, nbr, typ, pot, grid, ntypes: int,
+                       count_neighbors: bool = False, neigh_r2: float = 0.0,
+                       need_energy: bool = True, need_stress: bool = True):
+    """Plain torch K12-mt: ``pair_half_plain`` with ``typ`` [cap,NC] the
+    slots' types (clamped to 0..ntypes-1) and each pair on the fit's
+    column t_i * ntypes + t_j, t_j the type of the view's slot (``typ``
+    rolled to the view's offset; the own cell's for m < 0)."""
+    nt = ntypes
+    t = typ.clamp(0, nt - 1)
+    dims = grid.dims
+
+    def values(m, r2, i, j, c):
+        tj = t if m < 0 else _roll_cells(t, dims, HALF_OFFSETS[m])
+        col = t[i, c] * nt + tj[j, c]
+        g = torch.zeros_like(r2)
+        phi = torch.zeros_like(r2) if need_energy else None
+        for k, consts in enumerate(pot.host):
+            sel = col == k
+            x = r2[sel]
+            g[sel] = _horner_g(x, consts)
+            if need_energy:
+                phi[sel] = _horner_v(x, consts)
+        return g, phi
+    return _pair_half_sweep(xi, nbr, grid, values, count_neighbors,
+                            neigh_r2, need_energy, need_stress)
 
 
 def pair_half(xi, nbr, pot, grid, count_neighbors: bool = False,
@@ -705,6 +781,55 @@ def pair_half(xi, nbr, pot, grid, count_neighbors: bool = False,
     return acc_i, acc_s, acc_j
 
 
+def check_pair_mt(pot, ntypes: int) -> None:
+    """What K12-mt takes: 2..MAX_NT species and ntypes^2 fit columns."""
+    if not 2 <= ntypes <= kernels.MAX_NT:
+        raise ValueError(f"the typed pair pass takes 2 to {kernels.MAX_NT} "
+                         f"species, got ntypes {ntypes}")
+    if len(pot.host) != ntypes * ntypes:
+        raise ValueError(f"ntypes {ntypes} needs {ntypes * ntypes} pair "
+                         f"columns, the fit has {len(pot.host)}")
+
+
+def pair_half_mt(xi, nbr, typ, pot, grid, ntypes: int,
+                 count_neighbors: bool = False, neigh_r2: float = 0.0,
+                 need_energy: bool = True, need_stress: bool = True):
+    """K12-mt wrapper: ``pair_half_mt_plain``'s (acc_i, acc_s, acc_j) at
+    every live slot; ``typ`` [cap,NC] int32.  A dead slot's values are
+    unspecified, as ``pair_half``'s."""
+    check_pair_mt(pot, ntypes)
+    if not xi.is_cuda:
+        if xi.device.type != "cpu":
+            raise TypeError(f"unsupported device {xi.device}")
+        return pair_half_mt_plain(xi, nbr, typ, pot, grid, ntypes,
+                                  count_neighbors, neigh_r2, need_energy,
+                                  need_stress)
+    _check_half_inputs(xi, nbr, grid)
+    cap, _, nc = xi.shape
+    if typ.dtype != torch.int32 or tuple(typ.shape) != (cap, nc) \
+            or not typ.is_contiguous() or typ.device != xi.device:
+        raise TypeError("pair_half_mt takes contiguous int32 typ [cap,NC] "
+                        "on the device of xi")
+    nk = len(_pair_keys(need_energy, count_neighbors))
+    acc_i = torch.empty((nk, cap, nc), dtype=xi.dtype, device=xi.device)
+    acc_j = torch.empty((nk, NOF, cap, nc), dtype=xi.dtype,
+                        device=xi.device)
+    acc_s = (torch.empty((6, cap, nc), dtype=xi.dtype, device=xi.device)
+             if need_stress else None)
+    err = kernels.lib().imd_pair_half_mt(
+        xi.data_ptr(), nbr.data_ptr(), typ.data_ptr(),
+        _pair_mt_table(pot, xi.device).data_ptr(), ntypes,
+        acc_i.data_ptr(), 0 if acc_s is None else acc_s.data_ptr(),
+        acc_j.data_ptr(), int(bool(need_energy)), int(bool(count_neighbors)),
+        _nr2(grid, neigh_r2),
+        _pair_params(None, grid, cap,
+                     "pair_energy_mt" if need_energy else "pair_mt"), nc,
+        kernels.stream_ptr(xi.device))
+    kernels.check(err, "pair_half_mt")
+    kernels.LAUNCHES["pair_half_mt"] += 1
+    return acc_i, acc_s, acc_j
+
+
 def compute_pair_forces_pallas(scene: Scene, pot, ntypes: int = 1,
                                count_neighbors: bool = False,
                                neigh_r2: float = 0.0, block: int = 256,
@@ -712,30 +837,34 @@ def compute_pair_forces_pallas(scene: Scene, pot, ntypes: int = 1,
                                need_stress=None, timer=no_timer,
                                views=None) -> ForceResult:
     """B6 (imd_tpu/ops/forces_pallas.py:431): the pair engine of the
-    general step, one species, on the fastpoly fit ``pot``
-    (to_fastpoly(pair, vcap=50)).  Builds the 13 views (``prep_neighbors``,
-    timed as ``views``), runs K12 and assembles (``forces``).  Returns the
-    masked force, epot (zero unless ``need_energy``) and neighbour count
-    (zero unless ``count_neighbors``), the virial and the pressure tensor
-    (float64 sums of K12's i-side stress; zero unless ``need_stress``,
-    which defaults to ``need_energy``).  imd_tpu bakes table column 0
-    whatever ``ntypes`` says (ROADMAP C3); the port refuses ``ntypes`` > 1.
-    ``views`` as in ``prep_neighbors``; ``block`` is the TPU's lane block
-    and is ignored."""
-    if ntypes > 1:
-        raise ValueError(
-            f"compute_pair_forces_pallas is single-species: imd_tpu's B6 "
-            f"evaluates table column 0 for every pair whatever the types "
-            f"(ROADMAP C3), so ntypes {ntypes} is refused")
+    general step on the fastpoly fit ``pot`` (to_fastpoly(pair, vcap=50)).
+    Builds the 13 views (``prep_neighbors``, timed as ``views``), runs K12
+    for one species, or K12-mt for 2 <= ``ntypes`` <= 4 (each pair on the
+    fit's column t_i * ntypes + t_j), and assembles (``forces``).  Returns
+    the masked force, epot (zero unless ``need_energy``) and neighbour
+    count (zero unless ``count_neighbors``), the virial and the pressure
+    tensor (float64 sums of the kernel's i-side stress; zero unless
+    ``need_stress``, which defaults to ``need_energy``).  For ``ntypes`` > 1
+    this is what imd_tpu's XLA engines compute (compute_pair_forces_fast,
+    forces.py:116-127); imd_tpu's B6 does not: it bakes table column 0
+    into every pair whatever the types (ROADMAP C3).  ``views`` as in
+    ``prep_neighbors``; ``block`` is the TPU's lane block and is
+    ignored."""
     if need_stress is None:
         need_stress = need_energy
     grid = scene.grid
     dims = grid.dims
     with timer("views"):
-        xi, nbr, mask = prep_neighbors(scene, views)
+        xi, nbr, mask, typ = _prep(scene, views)
     with timer("forces"):
-        acc_i, acc_s, acc_j = pair_half(xi, nbr, pot, grid, count_neighbors,
-                                        neigh_r2, need_energy, need_stress)
+        if ntypes > 1:
+            acc_i, acc_s, acc_j = pair_half_mt(
+                xi, nbr, typ, pot, grid, ntypes, count_neighbors, neigh_r2,
+                need_energy, need_stress)
+        else:
+            acc_i, acc_s, acc_j = pair_half(
+                xi, nbr, pot, grid, count_neighbors, neigh_r2, need_energy,
+                need_stress)
         keys = _pair_keys(need_energy, count_neighbors)
         acc = {k: _assemble(dims, acc_i[n], acc_j[n])
                for n, k in enumerate(keys)}

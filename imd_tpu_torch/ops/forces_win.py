@@ -287,26 +287,33 @@ def win_tile(cap: int, dims, nt: int = 1):
 
 
 # scratch fields a pair keeps for K10-K12's j side, by launch kind: rho
-# (K10; the count needs none), the gradient (K11, K12), and phi when K12
-# computes the energy
-HALF_FIELDS = {"rho": 1, "force": 1, "pair": 1, "pair_energy": 2}
+# (K10; the count needs none), the gradient (K11, K12, K12-mt), and phi
+# when K12 or K12-mt computes the energy
+HALF_FIELDS = {"rho": 1, "force": 1, "pair": 1, "pair_energy": 2,
+               "pair_mt": 1, "pair_energy_mt": 2}
+# K12-mt's coefficient rows behind the lists (eam_half.cu:HALF_MT_TAB): two
+# tables of MAX_NT^2 rows of NPOLY + 2 floats
+HALF_MT_TAB = 2 * kernels.MAX_NT ** 2 * (kernels.NPOLY + 2) * 4
 
 
-def half_smem(cap: int, cpb: int, threads: int, nf: int) -> int:
+def half_smem(cap: int, cpb: int, threads: int, nf: int,
+              mt: bool = False) -> int:
     """Shared-memory bytes of a K10-K12 block (eam_half.cu:half_smem): the
     own cell and two staged views as float4 per cell, ``nf`` scratches of
     cap rows of cap * cpb + 1 floats, the column masks per cell, a limit
-    per staged cell, and the uint16 lists of cap entries."""
+    per staged cell, the uint16 lists of cap entries, and with ``mt``
+    K12-mt's coefficient rows."""
     words = -(-cap // 32)
     return (16 * 3 * cap * cpb + 4 * nf * cap * (cap * cpb + 1)
-            + 4 * words * cap * cpb + 4 * 3 * cpb + 2 * cap * threads)
+            + 4 * words * cap * cpb + 4 * 3 * cpb + 2 * cap * threads
+            + (HALF_MT_TAB if mt else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def half_tile(cap: int, kind: str):
-    """Launch shape of K10 (``kind`` "rho"), K11 ("force") and K12
-    ("pair", or "pair_energy" when it computes the energy) at capacity
-    ``cap``, a fixed
+    """Launch shape of K10 (``kind`` "rho"), K11 ("force"), K12
+    ("pair", or "pair_energy" when it computes the energy) and K12-mt
+    ("pair_mt", "pair_energy_mt") at capacity ``cap``, a fixed
     rule: the most cells a block, a power of two, whose cap * cells
     threads fit HALF_MAX_THREADS, halved until the shared memory fits
     HALF_MAX_SMEM; threads rounded up to whole warps.  Slots with x at or
@@ -318,7 +325,7 @@ def half_tile(cap: int, kind: str):
     cpb = 1 << (kernels.HALF_MAX_THREADS // cap).bit_length() - 1
     while True:
         threads = -(-cap * cpb // 32) * 32
-        smem = half_smem(cap, cpb, threads, nf)
+        smem = half_smem(cap, cpb, threads, nf, kind.endswith("_mt"))
         if smem <= kernels.HALF_MAX_SMEM:
             return kernels.HalfTile(cpb=cpb, threads=threads, smem=smem,
                                     dead=SENTINEL_DEAD / 2)
@@ -406,12 +413,13 @@ def _check_cuda_dF(dF, xi, name):
 
 def _pair_params(pot, grid, cap, half=None):
     """EamParams of a single-species pair fit (the density polynomials
-    empty): K12's value and derivative Horners of phi; ``half`` as in
-    ``_params_for``."""
+    empty): K12's value and derivative Horners of phi; of the geometry
+    alone for ``pot`` None (K12-mt reads its fits from
+    ``_pair_mt_table``); ``half`` as in ``_params_for``."""
     h = tuple(float(v) for v in grid.box.h.reshape(-1))
-    return _eam_params(None, _poly_consts(pot), float(grid.cutoff) ** 2, h,
-                       tuple(grid.box.pbc), tuple(grid.dims), int(cap),
-                       half=half)
+    return _eam_params(None, None if pot is None else _poly_consts(pot),
+                       float(grid.cutoff) ** 2, h, tuple(grid.box.pbc),
+                       tuple(grid.dims), int(cap), half=half)
 
 
 def _params_for(eam, grid, cap, nt=0, half=None):
@@ -427,16 +435,21 @@ def _params_for(eam, grid, cap, nt=0, half=None):
                        int(nt), half)
 
 
-@functools.lru_cache(maxsize=8)
-def _mt_table_cached(rho_h, pair_h, device):
-    rows = {"rho_v": rho_h, "pair_v": pair_h,
-            "pair_g": tuple((_deriv_coefs(c), *c[1:]) for c in pair_h),
-            "rho_g": tuple((_deriv_coefs(c), *c[1:]) for c in rho_h)}
-    _check_win_degree(rho_h + pair_h)
-    tab = np.zeros((len(kernels.MT_TABLES), len(rho_h), kernels.NPOLY + 2),
+def _deriv_rows(host):
+    """The columns of 2 d/dr^2 of the fit ``host`` (window and ends
+    kept)."""
+    return tuple((_deriv_coefs(c), *c[1:]) for c in host)
+
+
+def _coef_table(tables, device):
+    """[len(tables), ncols, NPOLY + 2] float32 on ``device``: per column of
+    each table (a host tuple of (coefs, begin, end)) the coefficients of
+    t^k, then a and b0 of the window transform."""
+    _check_win_degree(sum(tables, ()))
+    tab = np.zeros((len(tables), len(tables[0]), kernels.NPOLY + 2),
                    np.float32)
-    for k, name in enumerate(kernels.MT_TABLES):
-        for col, (c, b, e) in enumerate(rows[name]):
+    for k, rows in enumerate(tables):
+        for col, (c, b, e) in enumerate(rows):
             if len(c) > kernels.NPOLY:
                 raise ValueError(f"polynomial degree {len(c) - 1} exceeds "
                                  f"the kernel's {kernels.NPOLY - 1}")
@@ -444,6 +457,27 @@ def _mt_table_cached(rho_h, pair_h, device):
             tab[k, col, :len(c)] = c
             tab[k, col, kernels.NPOLY:] = inv_half, b * inv_half + 1.0
     return torch.from_numpy(tab).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _mt_table_cached(rho_h, pair_h, device):
+    rows = {"rho_v": rho_h, "pair_v": pair_h, "pair_g": _deriv_rows(pair_h),
+            "rho_g": _deriv_rows(rho_h)}
+    return _coef_table(tuple(rows[name] for name in kernels.MT_TABLES),
+                       device)
+
+
+@functools.lru_cache(maxsize=8)
+def _pair_mt_table_cached(pair_h, device):
+    return _coef_table((pair_h, _deriv_rows(pair_h)), device)
+
+
+def _pair_mt_table(pot, device):
+    """K12-mt's coefficient buffer [2, ntypes^2, NPOLY + 2] float32 on
+    ``device``: per type-pair column the rows of phi, then of 2 dphi/dr^2,
+    laid out as the pair tables of ``_mt_table``'s buffer (made once per
+    fit and device)."""
+    return _pair_mt_table_cached(pot.host, str(device))
 
 
 def _mt_table(eam, device):

@@ -1,6 +1,7 @@
-"""GLOK/FIRE relaxation and the quasistatic convergence test (port of
-imd_tpu/relax.py:34-91, 163-178; update_glok, imd_main_3d.c:1018-1111;
-check_relaxed, imd_main_3d.c:1787-1870).
+"""GLOK/FIRE relaxation, conjugate-gradient relaxation and the quasistatic
+convergence test (port of imd_tpu/relax.py; update_glok,
+imd_main_3d.c:1018-1111; cg_step/linmin, imd_cg.c:46-210; check_relaxed,
+imd_main_3d.c:1787-1870).
 
 GLOK runs NVE steps at FIRE's adaptive timestep; after each one
 ``fire_update`` moves every position half a step back and zeroes all
@@ -10,8 +11,15 @@ after ``minsteps`` downhill steps once ``min_n_pxf`` uphill events were
 seen, capped at ``max_timestep``) and steers the momenta toward the
 force, p <- (1 - mix) p + mix sqrt(pnorm / fnorm) F (MIX,
 imd_integrate.c:367-374).  Every condition is a 0-d device tensor under
-``torch.where``: the update reads nothing on the host.  CG relaxation
-(``cg_relax``) is not ported.
+``torch.where``: the update reads nothing on the host.
+
+``cg_relax`` runs Polak-Ribiere conjugate gradients with imd_tpu's secant
+line search: two force calls an iteration, the probe at ``trial_step`` A
+for the fastest atom, the step clamped to ``max_move`` A, steepest descent
+every ``restart_every`` iterations and wherever the direction is not
+downhill.  beta, alpha and the restarts are ``torch.where`` on 0-d device
+tensors as well, so an iteration reads nothing on the host either; its
+sums are float64.
 """
 
 from __future__ import annotations
@@ -93,6 +101,64 @@ def fire_update(scene: Scene, stats: integrate.StepStats, st: FireState,
         glok_int=torch.where(uphill, torch.zeros_like(st.glok_int),
                              st.glok_int + 1),
         n_pxf=st.n_pxf + up)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) as a float64 0-d tensor."""
+    return torch.sum(a * b, dtype=torch.float64)
+
+
+def cg_relax(scene: Scene, force_fn, n_steps: int, trial_step: float = 0.02,
+             restart_every: int = 50, max_move: float = 0.2):
+    """Polak-Ribiere CG with a secant line search (imd_tpu/relax.py:110-160;
+    cg_step/linmin, imd_cg.c:46-210): ``n_steps`` iterations of two force
+    calls each, after one for the start and before one for the end, with
+    ``force_fn(scene)`` -> a result with ``force`` and ``epot``.
+
+    Each iteration takes g = F (live slots), beta = max(g.(g - g_prev) /
+    g_prev.g_prev, 0) (0 on every ``restart_every``-th iteration of the
+    call, the first included), h = g + beta h, steepest descent where g.h
+    <= 0; probes F at s = trial_step / max|h| along h and steps alpha =
+    s d0 / (d0 - d1) (s where d0 - d1 vanishes) of the directional
+    derivatives d0 = g.h and d1 = F(x + s h).h, clamped to [0, max_move /
+    max|h|].  Returns (scene with the last call's force and epot, the
+    energies at each iteration's start [n_steps] float64, sum F.F at the
+    end)."""
+    fm = scene.mask.to(scene.pos.dtype)[..., None]
+    g_prev = force_fn(scene).force * fm
+    h = torch.zeros_like(g_prev)
+    zero = torch.zeros((), dtype=torch.float64, device=g_prev.device)
+    epots = []
+    for i in range(n_steps):
+        res = force_fn(scene)
+        g = res.force * fm
+        den = torch.clamp(_dot(g_prev, g_prev), min=1e-30)
+        beta = torch.clamp(_dot(g, g - g_prev) / den, min=0.0)
+        if i % restart_every == 0:
+            beta = zero
+        h = g + beta.to(g.dtype) * h
+        # steepest descent where h is not a descent direction
+        d0 = _dot(g, h)
+        down = d0 > 0.0
+        h = torch.where(down, h, g)
+        d0 = torch.where(down, d0, _dot(g, g))
+        # the secant step on the directional derivative, probed at a
+        # displacement of trial_step A for the fastest atom
+        hmax = torch.clamp(h.abs().amax().to(torch.float64), min=1e-30)
+        s = trial_step / hmax
+        trial = force_fn(scene.replace(pos=scene.pos + s.to(h.dtype) * h))
+        d1 = _dot(trial.force * fm, h)
+        denom = d0 - d1
+        alpha = torch.where(denom.abs() > 1e-30, s * d0 / denom, s)
+        # no atom moves more than max_move A in one iteration
+        alpha = torch.minimum(torch.clamp(alpha, min=0.0), max_move / hmax)
+        scene = scene.replace(pos=scene.pos + alpha.to(h.dtype) * h)
+        epots.append(res.epot.sum(dtype=torch.float64))
+        g_prev = g
+    res = force_fn(scene)
+    fnorm = _dot(res.force * res.force, fm)
+    return (scene.replace(force=res.force, epot=res.epot),
+            torch.stack(epots), fnorm)
 
 
 def check_relaxed(stats: integrate.StepStats, epot, epot_prev,

@@ -2,8 +2,9 @@
 for the configurations ``_fused_eligible`` sends to ``run_fused``,
 simulation.py:1791, 2463-3155, and for those it sends to its general step,
 simulation.py:1304, 2033, under ``ensemble nve``, ``nvt``, ``ber`` (with
-the ``endtemp`` ramp), ``mik`` and ``glok``: single-species pair
-potentials, and EAM sets off the fused loop).
+the ``endtemp`` ramp), ``mik`` and ``glok``, and ``ensemble cg``,
+simulation.py:1938: pair potentials of 1-4 species, and EAM sets off the
+fused loop).
 
 A run reads its configuration (``SimConfig``), loads the EAM tables (the
 reference's three files, or one DYNAMO setfl/funcfl file; up to 4 species)
@@ -39,18 +40,23 @@ re-derived for the current density (``_regrid_scene``).
 
 A pair potential (``potfile``, ``lj_*``/``ljg_*``, ``morse_*``,
 ``buck_*``) runs the general step instead (``make_step_fn``, ``run_general``),
-and so does an EAM set under ``nvt``, ``ber``, ``mik`` or ``glok`` or with
-an ``endtemp`` ramp (``_fused_eligible``): the skin check (one host read a
-step: eager torch has no ``lax.cond``), the device rebin when it fires, the
-forces (pairs: B6, ``compute_pair_forces_pallas``, the 13 views and K12 on
-the degree-12 fastpoly fit, as imd_tpu's TPU engine runs it; EAM: K4/K5,
+and so does an EAM set under ``nvt``, ``ber``, ``mik``, ``glok`` or ``cg``
+or with an ``endtemp`` ramp (``_fused_eligible``): the skin check (one host
+read a step: eager torch has no ``lax.cond``), the device rebin when it
+fires, the forces (pairs: B6, ``compute_pair_forces_pallas``, the 13 views
+and K12 on the degree-12 fastpoly fit, as imd_tpu's TPU engine runs it, or
+for 2-4 species K12-mt on the fit's column per type pair, as imd_tpu's XLA
+engines evaluate it; EAM: K4/K5,
 ``compute_eam_forces_pallas``, or with 2-4 species K8/K9,
 ``compute_eam_forces_pallas_mt``, imd_tpu simulation.py:1022-1032) and the
 ensemble's leapfrog (integrate.py; GLOK with relax.fire_update), its
 thermostat's state (eta, FIRE's) carried on the device; ``.eng`` takes the
 step's own sums, as imd_tpu's general loop does, with the Nose-Hoover
 ``eta*tau_eta`` column under nvt.  GLOK and MIK stop a phase at the first
-block end where ``check_relaxed`` holds.
+block end where ``check_relaxed`` holds.  ``ensemble cg`` (``_run_cg``)
+relaxes by Polak-Ribiere conjugate gradients (relax.cg_relax, two force
+calls an iteration) in blocks, with the skin check, the .eng line and
+``check_relaxed`` between blocks only.
 
 The loop over steps is Python (the JAX package's ``fori_loop`` blocks);
 the blocks stay, so output lands on the same steps as imd_tpu's.
@@ -139,8 +145,8 @@ _FLAT_INTERACTION_TAGS = (
     "keating_alpha", "keating_beta", "keating_d", "ttbp_constant", "ttbp_sp",
     "ttbp_cut", "meam_e", "meam_a", "dp_alpha", "ms_D")
 
-# the ensembles of the general step (make_step_fn)
-GENERAL_ENSEMBLES = ("nve", "nvt", "ber", "mik", "glok")
+# the ensembles of the general step (make_step_fn; cg: _run_cg)
+GENERAL_ENSEMBLES = ("nve", "nvt", "ber", "mik", "glok", "cg")
 
 
 def _ramped(cfg) -> bool:
@@ -160,15 +166,36 @@ def _general_step(cfg) -> bool:
     return (_any_set(cfg, _PAIR_TAGS) or _ramped(cfg)
             or cfg.ensemble not in ("nve", "ttm"))
 
+
+# ROADMAP C10: the fitted engine clamps a column past its end to the fit's
+# end value, which is not zero (C2), so a column that ends before the grid
+# cutoff would add a constant force shell out to it
+UNEQUAL_ENDS = ("pair table columns that end at different radii (ntypes > "
+                "1; r_cut, or 2.5 sigma per pair, ROADMAP C10)")
+
+
+def _pair_rcut(cfg, sigma) -> tuple:
+    """An analytic pair table's column ends, one per upper-triangular
+    type pair: ``r_cut``, else 2.5 sigma (imd_tpu simulation.py:236-266)."""
+    return tuple(cfg.r_cut or (2.5 * s for s in sigma))
+
+
+def _analytic_pair_ends(cfg) -> tuple:
+    """The column ends ``Simulation._pair_table`` gives an analytic pair
+    table with ntypes > 1; () otherwise (a potfile's come from its file)."""
+    if cfg.ntypes < 2 or cfg.potfile:
+        return ()
+    sigma = (cfg.lj_sigma if cfg.lj_epsilon else cfg.morse_sigma
+             if cfg.morse_epsilon else cfg.buck_sigma if cfg.buck_a else ())
+    return _pair_rcut(cfg, sigma)
+
 # (what, predicate, ROADMAP item): settings this port does not run yet
 UNPORTED = (
     (f"ntypes > {MAX_NT} (imd_tpu's general step)",
      lambda c: c.ntypes > MAX_NT, "A9c"),
     ("asympot with ntypes > 1 (imd_tpu's oracle engine)",
      lambda c: c.asympot and c.ntypes > 1, "A9c"),
-    # imd_tpu's B6 evaluates table column 0 for every pair (ROADMAP C3)
-    ("pair potentials (potfile, lj_*, morse_*, buck_*) with ntypes > 1",
-     lambda c: _any_set(c, _PAIR_TAGS) and c.ntypes > 1, "A9b"),
+    (UNEQUAL_ENDS, lambda c: len(set(_analytic_pair_ends(c))) > 1, "A9b"),
     ("pair potentials (potfile, lj_*, morse_*, buck_*) under ensemble ttm",
      lambda c: _any_set(c, _PAIR_TAGS) and c.ensemble == "ttm", "A9b"),
     ("analytic many-body interactions (stiweb/ters/keating/ttbp/meam/"
@@ -177,10 +204,10 @@ UNPORTED = (
      lambda c: _any_set(c, ("eeam_energy_file", "adp_upotfile")), "A9c"),
     ("charges / Ewald (charge, sm_chi_0)",
      lambda c: _any_set(c, ("charge", "sm_chi_0")), "A9c"),
-    ("ensemble cg (cg_relax)", lambda c: c.ensemble == "cg", "A9b"),
-    ("ensembles other than nve, nvt, ber, mik, glok and ttm (lang, and, "
-     "nvx, npt_iso, npt_axial, sllod, frac, ftg, finnis, stm, damp, ...)",
-     lambda c: c.ensemble not in GENERAL_ENSEMBLES + ("ttm", "cg"), "A9c"),
+    ("ensembles other than nve, nvt, ber, mik, glok, cg and ttm (lang, "
+     "and, nvx, npt_iso, npt_axial, sllod, frac, ftg, finnis, stm, damp, "
+     "...)", lambda c: c.ensemble not in GENERAL_ENSEMBLES + ("ttm",),
+     "A9c"),
     ("the TTM under ensemble nve",
      lambda c: c.ensemble == "nve" and c.ttm.enabled, "A9c"),
     # imd_tpu runs a ramped TTM file on its general step, which carries
@@ -202,7 +229,8 @@ UNPORTED = (
     # the general step carries none of them (imd_tpu's does, under every
     # ensemble): they run on the fused EAM loop only (ROADMAP C6)
     ("the TTM (ttmdimx), tmm, fdtd, nrb_* or filter_* on the general step "
-     "(a pair potential; EAM under nvt, ber, mik, glok or an endtemp ramp)",
+     "(a pair potential; EAM under nvt, ber, mik, glok, cg or an endtemp "
+     "ramp)",
      lambda c: _general_step(c) and (
          c.ttm.enabled or c.tmm.enabled or c.fdtd.enabled
          or c.nrb.enabled or c.filter.enabled), "A9b"),
@@ -370,6 +398,10 @@ class Simulation:
         if not cfg.core_potential_file:
             self.pair = with_interpolation(self._pair_table(),
                                            cfg.pot_interp)
+            if cfg.ntypes > 1 and np.ptp(np.asarray(self.pair.end)) > 0:
+                raise NotImplementedError(
+                    f"{UNEQUAL_ENDS} is not ported to imd_tpu_torch yet "
+                    f"(ROADMAP A9b)")
             self.cutoff = math.sqrt(self.pair.max_end)
             return
         self._load_eam()
@@ -380,25 +412,26 @@ class Simulation:
         nt = cfg.ntypes
         if cfg.potfile:
             return read_pot_table(self._path(cfg.potfile), nt * nt, True, dt)
-
-        def rc(sigma):
-            return cfg.r_cut or tuple(2.5 * s for s in sigma)
         if cfg.lj_epsilon and any(cfg.ljg_eps):
             return ljg_table(list(cfg.lj_epsilon), list(cfg.lj_sigma),
                              list(cfg.ljg_eps), list(cfg.ljg_r0),
-                             list(cfg.ljg_sig), list(rc(cfg.lj_sigma)), nt,
+                             list(cfg.ljg_sig),
+                             list(_pair_rcut(cfg, cfg.lj_sigma)), nt,
                              dtype=dt)
         if cfg.lj_epsilon:
             return lj_table(list(cfg.lj_epsilon), list(cfg.lj_sigma),
-                            list(rc(cfg.lj_sigma)), nt, dtype=dt)
+                            list(_pair_rcut(cfg, cfg.lj_sigma)), nt,
+                            dtype=dt)
         if cfg.morse_epsilon:
             return morse_table(list(cfg.morse_epsilon), list(cfg.morse_alpha),
                                list(cfg.morse_sigma),
-                               list(rc(cfg.morse_sigma)), nt, dtype=dt)
+                               list(_pair_rcut(cfg, cfg.morse_sigma)), nt,
+                               dtype=dt)
         if cfg.buck_a:
             return buckingham_table(list(cfg.buck_a), list(cfg.buck_c),
                                     list(cfg.buck_sigma),
-                                    list(rc(cfg.buck_sigma)), nt, dtype=dt)
+                                    list(_pair_rcut(cfg, cfg.buck_sigma)),
+                                    nt, dtype=dt)
         raise ValueError("no potential configured "
                          "(potfile / EAM files / lj_* parameters)")
 
@@ -588,9 +621,10 @@ class Simulation:
     def _select_engine(self):
         """Always the port's kernels on the fitted polynomials, the EAM
         set's or the pair table's (to_fastpoly with vcap 50, as imd_tpu's
-        Pallas engine, simulation.py:424-431).  imd_tpu picks that engine
-        only up to capacity 32 (a TPU VMEM limit, simulation.py:398); the
-        CUDA kernels have no such limit."""
+        Pallas engine, simulation.py:424-431; the fit has a column per type
+        pair, which K12-mt reads for ntypes > 1).  imd_tpu picks that
+        engine only up to capacity 32 (a TPU VMEM limit,
+        simulation.py:398); the CUDA kernels have no such limit."""
         self.eam_run = self.pair_run = None
         if self.eam is not None:
             self.eam_run = eam_to_fastpoly(self.eam)
@@ -827,13 +861,104 @@ class Simulation:
 
     # -- the run --------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> SimState:
-        """The fused loop where ``_fused_eligible`` holds, else the general
-        step (a pair potential; an EAM set under a thermostat, under
-        relaxation or with a ramp), as imd_tpu's run() dispatches
-        (simulation.py:2046)."""
+        """``ensemble cg`` first, then the fused loop where
+        ``_fused_eligible`` holds, else the general step (a pair potential;
+        an EAM set under a thermostat, under relaxation or with a ramp), as
+        imd_tpu's run() dispatches (simulation.py:2044-2046)."""
+        if self.ensemble == "cg":
+            return self._run_cg(steps)
         if self._fused_eligible():
             return self.run_fused(steps)
         return self.run_general(steps)
+
+    def _run_cg(self, steps: Optional[int] = None) -> SimState:
+        """``ensemble cg`` (imd_tpu simulation.py:1938-2032): Polak-Ribiere
+        CG relaxation (``relax.cg_relax`` with the general step's force
+        call) in blocks of ``eng_int`` iterations (else min(steps, 50)),
+        beta restarted every iteration under ``cg_mode`` (the reference's
+        ACG/steepest-descent variant), else every ``cg_reset_int`` (50).
+        Between blocks only: the skin check and the rebin, the .eng line
+        (temperature and pressure 0) and ``check_relaxed`` on the block's
+        last energy and final sum F.F (``# relaxed at step N`` ends the
+        phase); a rebin that overflows the cell capacity grows or
+        re-grids the scene and bins it again (``_overflow_retry``).  One
+        checkpoint at the end, when ``checkpt_int`` is set."""
+        cfg = self.cfg
+        R = cfg.relax
+        steps = self._steps_to_run(steps)
+        block = max(1, min(cfg.eng_int if cfg.eng_int > 0
+                           else min(steps, 50), steps))
+        restart_every = (1 if R.cg_mode else
+                         cfg.cg_reset_int if cfg.cg_reset_int > 0 else 50)
+        forces = self._force_fn()
+        nactive = integrate.count_active_dof(self.scene)
+        if cfg.eng_int > 0 and self.eng is None:
+            self.eng = EngWriter(self._path(cfg.outfiles + ".eng"),
+                                 append=cfg.simulation_phase > 1)
+        timer, counters = self.timer, self.counters
+        self.timers.start("total")
+        self.relaxed_at = None
+        scene = self.scene
+        epot_prev = ep = None
+        done = grow_tries = 0
+        regrid_at = -1
+        while done < steps:
+            t0 = time.perf_counter()
+            with self.timers.section("main"):
+                scene, epots, fnorm = relax.cg_relax(
+                    scene, forces, block, restart_every=restart_every)
+                _sync(self.device)
+            self.block_seconds.append((block, time.perf_counter() - t0))
+            counters.steps += block
+            with timer("skin"):
+                do_it = bool(needs_rebin(scene, scene.grid.skin))
+            counters.host_syncs += 1
+            if do_it:
+                with timer("rebin"):
+                    moved = rebin(scene)
+                # an overflow grows (or re-grids) the block's last scene
+                # and bins it again; the block needs no rerun, its forces
+                # were computed on the stale lists before the rebin
+                while int(moved.overflow) > 0:
+                    grown, grow_tries, regrid_at = self._overflow_retry(
+                        scene, grow_tries, regrid_at, done, "rebin")
+                    with timer("rebin"):
+                        moved = rebin(grown)
+                    forces = self._force_fn()
+                scene = moved
+                counters.rebins += 1
+                self.nbl_count += 1
+            done += block
+            gstep = self.step_count + done
+            ep = float(epots[-1])
+            if cfg.eng_int > 0:
+                self.eng.write(time=float(gstep) * cfg.timestep,
+                               epot_per_atom=ep / max(n_atoms(scene), 1),
+                               temperature=0.0, pressure=0.0,
+                               volume=self._volume())
+            z = torch.zeros_like(fnorm)
+            stats = integrate.StepStats(tot_kin_energy=z, fnorm=fnorm,
+                                        pnorm=z, pxf=z, ekin_new=z)
+            if epot_prev is not None and bool(relax.check_relaxed(
+                    stats, ep, epot_prev, nactive, R.fnorm_threshold, 0.0,
+                    R.delta_epot_threshold)):
+                print(f"# relaxed at step {gstep}", flush=True)
+                self.relaxed_at = gstep
+                break
+            epot_prev = ep
+        if ep is None:      # no iteration to run: the scene's own energy
+            ep = float(scene.epot.sum(dtype=torch.float64))
+        state = SimState(scene=scene, step=self.step_count + done,
+                         epot_total=ep, ekin=0.0, virial=0.0,
+                         presstens=np.zeros(6), rho=None)
+        if cfg.checkpt_int > 0:
+            self.write_checkpoint(state, state.step // cfg.checkpt_int)
+        self.scene = scene
+        self.step_count = state.step
+        self.timers.stop("total")
+        print(self.timers.report(n_atoms=max(n_atoms(scene), 1),
+                                 n_steps=max(done, 1)), flush=True)
+        return state
 
     def _fused_eligible(self) -> bool:
         """imd_tpu's _fused_eligible (simulation.py:1791-1848) as far as
@@ -1052,12 +1177,13 @@ class Simulation:
         return False
 
     def _overflow_retry(self, sc_prev: Scene, grow_tries: int,
-                        regrid_at: int, done: int):
+                        regrid_at: int, done: int, what: str = "block"):
         """A rebin of the last block overflowed the cell capacity: grow the
         slot axis of the pre-block scene ``sc_prev`` (alloc_cell,
         imd_alloc.c:551), or past ``REGRID_CAPACITY`` re-grid it, so that
-        the caller retries the block.  Returns (scene, grow_tries,
-        regrid_at) and makes the scene the driver's."""
+        the caller retries ``what`` (the block; cg's rebin, from the
+        block's last scene).  Returns (scene, grow_tries, regrid_at) and
+        makes the scene the driver's."""
         grow_tries += 1
         if grow_tries > 6:
             raise RuntimeError(
@@ -1066,7 +1192,7 @@ class Simulation:
         old = self.grid.capacity
         new_cap = ((old + 8 + 7) // 8) * 8
         print(f"# cell overflow: growing capacity {old} -> {new_cap} and "
-              f"retrying the block", flush=True)
+              f"retrying the {what}", flush=True)
         regridded = None
         if new_cap > REGRID_CAPACITY and regrid_at != done:
             regridded = self._regrid_scene(sc_prev)
@@ -1093,15 +1219,17 @@ class Simulation:
         return max(cfg.starttemp, 0.0)
 
     def _force_fn(self):
-        """The general step's force call (simulation.py:1022-1036): B6
-        (the 13 views and K12) for a pair potential, K4/K5 for one EAM
-        species, K8/K9 for 2-4."""
+        """The general step's force call (simulation.py:1022-1036): B6 for
+        a pair potential, the 13 views and K12 for one species or K12-mt
+        for 2-4 (each pair on its type pair's column, as imd_tpu's XLA
+        engines evaluate it; its B6 would read column 0, ROADMAP C3); K4/K5
+        for one EAM species, K8/K9 for 2-4."""
         timer, nt = self.timer, self.cfg.ntypes
         if self.pair_run is not None:
             pot = self.pair_run
             views = make_neighbor_views(self.grid, self.dtype, self.device)
             return lambda sc: compute_pair_forces_pallas(
-                sc, pot, timer=timer, views=views)
+                sc, pot, nt, timer=timer, views=views)
         eam = self.eam_run
         if nt > 1:
             return lambda sc: compute_eam_forces_pallas_mt(sc, eam, nt,

@@ -406,8 +406,18 @@ def test_stop_file_ends_the_run_with_a_checkpoint(rundir, tmp_path):
 UNPORTED = {
     "ntypes": ("ntypes 5\nmasses 26.98 26.98 26.98 26.98 26.98\n", "A9"),
     "asympot": ("ntypes 2\nmasses 26.98 26.98\nasympot 1\n", "A9"),
-    "pair_ntypes2": ("ntypes 2\nmasses 26.98 26.98\nlj_epsilon 0.35 0.3 "
-                     "0.4\nlj_sigma 2.62 2.5 2.7\n", "A9b"),
+    # two species run (K12-mt), but not on columns that end apart (C10):
+    # r_cut defaults to 2.5 sigma per pair
+    "pair_unequal_ends": ("ntypes 2\nmasses 26.98 26.98\nlj_epsilon 0.35 "
+                          "0.3 0.4\nlj_sigma 2.62 2.5 2.7\n", "A9b"),
+    "pair_unequal_r_cut": ("ntypes 2\nmasses 26.98 26.98\nlj_epsilon 0.35 "
+                           "0.3 0.4\nlj_sigma 2.62 2.62 2.62\nr_cut 5.0 4.5 "
+                           "5.0\n", "A9b"),
+    # ensemble cg runs the general step: no TTM there, and no quasistatic
+    # loading driver (imd_tpu warns and relaxes without them)
+    "cg_ttm": ("ensemble cg\nttmdimx 4\ninit_t_el 0.03\n", "A9b"),
+    "cg_lindef": ("ensemble cg\nlindef_int 4\nlindef_x 0.01 0 0\n",
+                  "A9c"),
     "pair_ttm": ("ensemble ttm\nlj_epsilon 0.35\nlj_sigma 2.62\n", "A9b"),
     "stiweb": ("stiweb_a 1.0\n", "A9"),
     "ensemble_lang": ("ensemble lang\n", "A9c"),

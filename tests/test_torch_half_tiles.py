@@ -4,8 +4,9 @@ on the CPU.
 ``forces_win.half_tile`` chooses, per capacity and kind, the cells a
 block, the threads and the shared memory; the C entries check it
 (``half_ok``) and launch with it.  These tests hold every shape the
-wrappers can ask for (capacity 1 to the limit, K10, K11, and K12 with and
-without the energy) to the rules of ``half_ok`` and to the H100's 227 KB,
+wrappers can ask for (capacity 1 to the limit, K10, K11, and K12 and its
+typed twin K12-mt with and without the energy) to the rules of
+``half_ok`` and to the H100's 227 KB,
 walk the kernels' sweep loop and the threads' shared memory indices, and
 check the wrappers' limits.  No JAX.
 """
@@ -18,31 +19,34 @@ from imd_tpu_torch.ops import forces_pallas as fp
 from imd_tpu_torch.ops import forces_win as win
 from imd_tpu_torch.ops.geometry import Box, CellGrid
 
-KINDS = ("rho", "force", "pair", "pair_energy")
+KINDS = ("rho", "force", "pair", "pair_energy", "pair_mt", "pair_energy_mt")
 NOF = fp.NOF
 
 
-def half_ok(t, cap, nf):
+def half_ok(t, cap, nf, mt=False):
     """eam_half.cu's half_ok: what the C entries assume of the shape."""
     threads = -(-cap * t.cpb // 32) * 32
     return (1 <= cap <= kernels.HALF_MAX_CAP and t.cpb >= 1
             and t.threads == threads
             and threads <= kernels.HALF_MAX_THREADS
-            and t.smem == win.half_smem(cap, t.cpb, threads, nf)
+            and t.smem == win.half_smem(cap, t.cpb, threads, nf, mt)
             and t.smem <= kernels.HALF_MAX_SMEM)
 
 
-def regions(t, cap, nf):
+def regions(t, cap, nf, mt=False):
     """Sizes in elements of the kernels' shared arrays (carve_half): the
     staged float4 slots (the own cell and two views), the scratch floats,
-    the mask words, the limits and the list entries; with their byte
-    offsets."""
+    the mask words, the limits and the list entries, and K12-mt's
+    coefficient rows (two tables of MAX_NT^2 rows of Poly's floats); with
+    their byte offsets."""
     words = -(-cap // 32)
     sizes = {"v": (16, 3 * cap * t.cpb),
              "sc": (4, nf * cap * (cap * t.cpb + 1)),
              "mask": (4, words * cap * t.cpb),
              "lim": (4, 3 * t.cpb),
              "list": (2, cap * t.threads)}
+    if mt:
+        sizes["tab"] = (4, 2 * kernels.MAX_NT ** 2 * (kernels.NPOLY + 2))
     offs, off = {}, 0
     for name, (width, n) in sizes.items():
         assert off % width == 0, (name, off)
@@ -60,17 +64,18 @@ def test_every_half_tile_fits_and_meets_half_ok(kind):
     least 8 cells wherever 8 cells fit the thread limit (a warp reads whole
     32-byte sectors); dead slots from half of SENTINEL_DEAD."""
     nf = win.HALF_FIELDS[kind]
+    mt = kind.endswith("_mt")
     for cap in range(1, kernels.HALF_MAX_CAP + 1):
         t = win.half_tile(cap, kind)
-        assert half_ok(t, cap, nf), (cap, kind)
+        assert half_ok(t, cap, nf, mt), (cap, kind)
         assert t.smem <= 227 * 1024 and t.threads % 32 == 0
-        _, _, end = regions(t, cap, nf)
+        _, _, end = regions(t, cap, nf, mt)
         assert end == t.smem
         assert t.cpb & (t.cpb - 1) == 0
         assert cap * t.cpb <= kernels.HALF_MAX_THREADS
         c2 = 2 * t.cpb
         assert (cap * c2 > kernels.HALF_MAX_THREADS
-                or win.half_smem(cap, c2, -(-cap * c2 // 32) * 32, nf)
+                or win.half_smem(cap, c2, -(-cap * c2 // 32) * 32, nf, mt)
                 > kernels.HALF_MAX_SMEM), (cap, kind)
         if 8 * cap <= kernels.HALF_MAX_THREADS:
             assert t.cpb >= 8, (cap, kind)

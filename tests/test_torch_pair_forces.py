@@ -24,6 +24,7 @@ import torch
 
 from imd_tpu import integrate as j_int
 from imd_tpu.models import potential as j_pot
+from imd_tpu.ops import forces_fast as j_ff
 from imd_tpu.ops import forces_pallas as j_fp
 from imd_tpu.ops import geometry as j_geom
 from imd_tpu.scene import make_scene as j_make_scene
@@ -36,6 +37,7 @@ from imd_tpu_torch import scene as t_scene
 from imd_tpu_torch.models import potential as t_pot
 from imd_tpu_torch.ops import forces_pallas as t_fp
 from imd_tpu_torch.ops.forces import HALF_OFFSETS
+from test_torch_pair_mt import typed_fit, typed_scene
 
 TOL = 1e-9
 
@@ -210,8 +212,12 @@ def test_pair_forces_match_jax(geom):
 
 
 def test_pair_forces_switches_and_types():
-    """Energy, stress and count off give zeros, as imd_tpu's switches do;
-    ntypes > 1 is refused (imd_tpu would evaluate column 0, ROADMAP C3)."""
+    """Energy, stress and count off give zeros, as imd_tpu's switches do.
+    On the periodic two-species input of tests/test_torch_pair_mt.py (the
+    binary model's fit) the port evaluates each pair on its type pair's
+    column, as imd_tpu's compute_pair_forces_fast does (to 1e-12 of
+    max|F|), while imd_tpu's B6 in interpret mode bakes column 0 into every
+    pair (ROADMAP C3) and lands more than half of max|F| away."""
     tscene = convert.from_scene(_fcc_scene((1, 1, 1), capacity=48),
                                 device="cpu")
     tpot = convert.from_pot(_jlj())
@@ -220,5 +226,16 @@ def test_pair_forces_switches_and_types():
     assert torch.equal(bare.force, full.force)
     assert not bool(bare.epot.any()) and not bool(bare.presstens.any())
     assert float(bare.virial) == 0.0 and not bool(full.num_neighs.any())
-    with pytest.raises(ValueError, match="C3"):
-        t_fp.compute_pair_forces_pallas(tscene, tpot, ntypes=2)
+    jscene2 = typed_scene((1, 1, 1), 2)
+    jpot2 = typed_fit(2)
+    want = np.asarray(j_ff.compute_pair_forces_fast(jscene2, jpot2, 2).force)
+    b6 = np.asarray(jax.jit(lambda s: j_fp.compute_pair_forces_pallas(
+        s, jpot2, ntypes=2))(jscene2).force)
+    port = t_fp.compute_pair_forces_pallas(
+        convert.from_scene(jscene2, device="cpu"), convert.from_pot(jpot2),
+        ntypes=2).force.numpy()
+    fmax = np.abs(want).max()
+    np.testing.assert_allclose(port, want, rtol=0, atol=1e-12 * fmax)
+    c3 = np.abs(b6 - port).max() / fmax
+    print(f"imd_tpu's B6 against the typed port: max|dF|/max|F| {c3:.3f}")
+    assert c3 > 0.5
